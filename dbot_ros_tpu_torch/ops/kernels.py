@@ -1,0 +1,274 @@
+"""Wrappers of the port's CUDA kernels, each beside its plain PyTorch version.
+
+Three kernels carry the fused sensor's main path (sources in csrc/):
+
+=====================  ===================  =================================
+wrapper                CUDA source          replaces (Pallas, TPU)
+=====================  ===================  =================================
+``fused_loglik``       fused_loglik.cu      ``_fused_kernel`` via
+                                            ``fused_loglik_packed``
+                                            (dbot_ros_tpu/ops/
+                                            raycast_pallas.py:192, :640)
+``gather_pixel_rows``  pixel_rows.cu        ``gather_pixel_rows`` (:584)
+``scatter_pixel_rows`` pixel_rows.cu        ``scatter_pixel_rows`` (:508)
+=====================  ===================  =================================
+
+Dispatch: a tensor on the CPU goes to the plain version (``*_plain``); a
+CUDA tensor launches the kernel, or raises on a wrong dtype, shape,
+device or contiguity. There is no fallback from the CUDA path. Each
+wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
+int, never reset here), so a run can show it went through the kernel.
+The sources' headers say what bounds each kernel on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_TINY = 1e-30
+_DET_EPS = 1e-12
+_NEAR = 1e-4
+_BIG = 1e30
+_SQRT2PI = 2.5066282746310002
+# the fused kernel sums each particle over at most this many pixel chunks
+_MAX_CHUNKS = 64
+
+
+def _lib():
+    from dbot_ros_tpu_torch.ops import build
+    return build.load()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(name, t, dtypes, ndim, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
+                        f"{[str(d) for d in dtypes]}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# Fused candidate raycast + beam likelihood + occlusion posterior
+# ---------------------------------------------------------------------------
+
+def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params):
+    """Plain PyTorch version of the fused kernel (same op order).
+
+    Args:
+      slabs: (T, 10, p_pad) f32 transformed constants
+        ``[g_u(3) | g_v(3) | g_det(3) | t_num]`` per triangle.
+      occ: (n, p_pad) occlusion map rows of the n pixels (bf16 or f32).
+      z: (n,) f32 observed depth, NaN = invalid; cand: (n, K) triangle ids
+        into ``slabs``; rays: (n, 3) f32; ages: (n,) f32 staleness of
+        each occ row in frame units; params: (16,) f32 (make_params_vec).
+    Returns (loglik (p_pad,) f32 = Σ_j log p(z_j), occ_out (n, p_pad) in
+    occ's dtype).
+    """
+    (msig, sfac, wt, minz, maxz, lam, p_inv_occ, p_inv_vis, p_inv_bg,
+     occ_pi, _gdt, inv_range, occ_lg, occ_dtf, occ_sgn,
+     slack) = params.unbind()
+    dx, dy, dz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]   # (n, 1)
+    zc = z[:, None]
+    z_real = zc == zc
+    z_valid = z_real & (zc >= minz) & (zc <= maxz)
+    zz = torch.where(z_real, zc, 1.0)
+
+    t = None
+    for k in range(cand.shape[1]):
+        s = slabs[cand[:, k].long()]                         # (n, 10, p_pad)
+        u = s[:, 0] * dx + s[:, 1] * dy + s[:, 2] * dz
+        v = s[:, 3] * dx + s[:, 4] * dy + s[:, 5] * dz
+        det = s[:, 6] * dx + s[:, 7] * dy + s[:, 8] * dz
+        tn = s[:, 9]
+        sgn = torch.sign(det)
+        adet = torch.abs(det)
+        sa = slack * adet
+        valid = ((adet > _DET_EPS)
+                 & (sgn * u >= -sa)
+                 & (sgn * v >= -sa)
+                 & (sgn * (u + v) <= adet + sa)
+                 & (sgn * tn > _NEAR * adet))
+        tk = torch.where(valid, tn / torch.where(valid, det, 1.0), _BIG)
+        t = tk if t is None else torch.minimum(t, tk)
+    on_sil = t < _BIG * 0.5
+    d = torch.where(on_sil, t, 1.0)
+
+    geff = occ_sgn * torch.exp(occ_lg * (ages[:, None] + occ_dtf))
+    q = torch.clamp(occ_pi + geff * (occ.float() - occ_pi), 0.0, 1.0)
+
+    sig = msig + sfac * d * d
+    zn = (zz - d) / sig
+    body_vis = torch.exp(-0.5 * zn * zn) / (sig * _SQRT2PI)
+    lik_vis = torch.where(
+        z_valid, ((1.0 - wt) * body_vis + wt * inv_range) * (1.0 - p_inv_vis),
+        p_inv_vis)
+
+    d_eff = torch.minimum(torch.maximum(d, minz), maxz)
+    span = torch.clamp_min(d_eff - minz, 1e-6)
+    norm_occ = torch.clamp_min(1.0 - torch.exp(-lam * span), 1e-6)
+    body_occ = lam * torch.exp(-lam * (zz - minz)) / norm_occ
+    in_front = z_valid & (zz <= d_eff)
+    lik_occ = torch.where(
+        z_real,
+        ((1.0 - wt) * torch.where(in_front, body_occ, 0.0)
+         + wt * torch.where(z_valid, inv_range, 0.0)) * (1.0 - p_inv_occ),
+        p_inv_occ)
+    lik_bg = torch.where(
+        z_real, torch.where(z_valid, inv_range, 0.0) * (1.0 - p_inv_bg),
+        p_inv_bg)
+
+    p_on = (1.0 - q) * lik_vis + q * lik_occ
+    p_z = torch.clamp_min(torch.where(on_sil, p_on, lik_bg), _TINY)
+    post = q * lik_occ / torch.clamp_min(p_on, _TINY)
+    post = torch.where(on_sil, torch.clamp(post, 0.0, 1.0), q)
+    return torch.log(p_z).sum(dim=0), post.to(occ.dtype)
+
+
+def fused_loglik(slabs, occ, z, cand, rays, ages, params):
+    """Fused raycast + likelihood + occlusion posterior (see
+    :func:`fused_loglik_plain` for the arguments and results).
+
+    On CUDA: ``cand`` must be int32, every float input float32 except
+    ``occ`` (bfloat16 or float32), all contiguous and on one device; the
+    kernel writes a new ``occ_out`` (the input map is not modified).
+    """
+    if not occ.is_cuda:
+        return fused_loglik_plain(slabs, occ, z, cand, rays, ages, params)
+    dev = occ.device
+    f32 = (torch.float32,)
+    _check("occ", occ, (torch.bfloat16, torch.float32), 2, dev)
+    _check("slabs", slabs, f32, 3, dev)
+    _check("z", z, f32, 1, dev)
+    _check("cand", cand, (torch.int32,), 2, dev)
+    _check("rays", rays, f32, 2, dev)
+    _check("ages", ages, f32, 1, dev)
+    _check("params", params, f32, 1, dev)
+    n, p_pad = occ.shape
+    K = cand.shape[1]
+    if slabs.shape[1:] != (10, p_pad):
+        raise ValueError(f"slabs must be (T, 10, {p_pad}), got "
+                         f"{tuple(slabs.shape)}")
+    if (z.shape != (n,) or cand.shape[0] != n or K < 1
+            or rays.shape != (n, 3) or ages.shape != (n,)
+            or params.shape != (16,)):
+        raise ValueError(
+            f"shape mismatch: occ {tuple(occ.shape)}, z {tuple(z.shape)}, "
+            f"cand {tuple(cand.shape)}, rays {tuple(rays.shape)}, ages "
+            f"{tuple(ages.shape)}, params {tuple(params.shape)}")
+    loglik = torch.empty((p_pad,), dtype=torch.float32, device=dev)
+    occ_out = torch.empty_like(occ)
+    if n == 0:
+        return loglik.zero_(), occ_out
+    chunk = max(4, -(-n // _MAX_CHUNKS))
+    n_chunks = -(-n // chunk)
+    partial = torch.empty((n_chunks, p_pad), dtype=torch.float32,
+                          device=dev)
+    lib = _lib()
+    entry = (lib.dbot_fused_loglik_bf16 if occ.dtype == torch.bfloat16
+             else lib.dbot_fused_loglik_f32)
+    err = entry(slabs.data_ptr(), occ.data_ptr(), z.data_ptr(),
+                cand.data_ptr(), rays.data_ptr(), ages.data_ptr(),
+                params.data_ptr(), occ_out.data_ptr(), partial.data_ptr(),
+                loglik.data_ptr(), n, K, p_pad, chunk, _stream(occ))
+    fused_loglik.launches += 1
+    _raise_on(err, "fused_loglik launch")
+    return loglik, occ_out
+
+
+fused_loglik.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Pixel-row gather / scatter on the (n_pad, p_pad) occlusion map
+# ---------------------------------------------------------------------------
+
+def gather_pixel_rows_plain(q, sel):
+    """``out[j] = q[sel[j]]`` (plain PyTorch version)."""
+    return q.index_select(0, sel.long())
+
+
+def scatter_pixel_rows_plain(q, vals, sel):
+    """``q[sel[j]] = vals[j]`` in place (plain PyTorch version)."""
+    return q.index_copy_(0, sel.long(), vals)
+
+
+def _check_rows(q, sel):
+    dev = q.device
+    if q.ndim != 2 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous 2-D map, got shape "
+                         f"{tuple(q.shape)}")
+    _check("sel", sel, (torch.int32,), 1, dev)
+    row_bytes = q.shape[1] * q.element_size()
+    if row_bytes % 16 or q.data_ptr() % 16:
+        raise ValueError("rows of q must be 16-byte multiples and aligned "
+                         f"(row of {row_bytes} B)")
+    return row_bytes
+
+
+def gather_pixel_rows(q, sel):
+    """Pixel-row gather ``out[j, :] = q[sel[j], :]``; duplicate ``sel``
+    entries are allowed. Every entry must lie in ``[0, q.shape[0])``
+    (the caller clamps: the kernel does not check)."""
+    if not q.is_cuda:
+        return gather_pixel_rows_plain(q, sel)
+    row_bytes = _check_rows(q, sel)
+    out = torch.empty((sel.shape[0], q.shape[1]), dtype=q.dtype,
+                      device=q.device)
+    if sel.shape[0] == 0:
+        return out
+    err = _lib().dbot_gather_pixel_rows(q.data_ptr(), sel.data_ptr(),
+                                        out.data_ptr(), sel.shape[0],
+                                        row_bytes, _stream(q))
+    gather_pixel_rows.launches += 1
+    _raise_on(err, "gather_pixel_rows launch")
+    return out
+
+
+gather_pixel_rows.launches = 0
+
+
+def scatter_pixel_rows(q, vals, sel):
+    """Pixel-row scatter ``q[sel[j], :] = vals[j, :]``, **in place**: ``q``
+    itself is updated and returned; rows not in ``sel`` are untouched.
+
+    Precondition: ``sel`` entries are distinct and in ``[0, q.shape[0])``
+    (the compaction ladder's selection ranks are). With duplicates the
+    row written last is unspecified.
+    """
+    if not q.is_cuda:
+        return scatter_pixel_rows_plain(q, vals, sel)
+    row_bytes = _check_rows(q, sel)
+    _check("vals", vals, (q.dtype,), 2, q.device)
+    if vals.shape != (sel.shape[0], q.shape[1]):
+        raise ValueError(f"vals must be {(sel.shape[0], q.shape[1])}, got "
+                         f"{tuple(vals.shape)}")
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned (the kernel copies "
+                         "rows in 16-byte words)")
+    if sel.shape[0] == 0:
+        return q
+    err = _lib().dbot_scatter_pixel_rows(q.data_ptr(), vals.data_ptr(),
+                                         sel.data_ptr(), sel.shape[0],
+                                         row_bytes, _stream(q))
+    scatter_pixel_rows.launches += 1
+    _raise_on(err, "scatter_pixel_rows launch")
+    return q
+
+
+scatter_pixel_rows.launches = 0
