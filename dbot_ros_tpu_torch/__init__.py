@@ -7,18 +7,27 @@ counterpart's name and layout, and the tests feed both the same inputs.
 
 Layout (the counterpart of each module has the same path in dbot_ros_tpu/):
   utils/     pose algebra, meshes, cameras
-  models/    transition, beam, occlusion models; the sensor factory
-  ops/       raycast, candidate pass, resampling, the fused sensor,
-             the CUDA kernel wrappers (ops/kernels.py) and their build
+  config.py  tracker configuration dataclasses, YAML/JSON loading
+  utils/     pose algebra, meshes, cameras
+  models/    transition, beam, occlusion models; the image likelihood;
+             the sensor factory ("pallas" = fused, "xla" = exact)
+  ops/       raycast, candidate pass, resampling, memory budget, the
+             fused sensor, the CUDA kernel wrappers (ops/kernels.py) and
+             their build
   filters/   the RBC-PF step
-  trackers/  the particle tracker facade
-  runtime/   synthetic source and the streaming loop
+  trackers/  the particle tracker facade with its island trial
+  runtime/   sources (replay, synthetic), the streaming loop, metrics,
+             checkpoint, watchdog, the 6-DoF initializer, publisher,
+             overlay, and the command line (``python -m
+             dbot_ros_tpu_torch record|track|simulate``)
   csrc/      CUDA C++ sources of the kernels
-  interop.py numpy → torch conversion of the JAX package's state
+  interop.py numpy → torch conversion of the JAX package's state and
+             checkpoints
 
-Importing this package never imports jax. Configuration dataclasses and
-per-frame metrics come from the two jax-free modules of the JAX package
-(``dbot_ros_tpu.config`` and ``dbot_ros_tpu.runtime.metrics``).
+The package imports ``torch``, never ``jax`` and nothing of
+``dbot_ros_tpu``: it keeps its own copy of what it needs. Its entry
+points run on the card (``device=None`` means ``cuda`` and raises
+without it); pass ``device="cpu"`` / ``--device cpu`` for the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,4 +1,6 @@
-"""numpy → torch conversion of the JAX package's state.
+"""numpy → torch conversion of the JAX package's state, and its
+checkpoints (:func:`checkpoint_from_jax`). Config dicts need no
+conversion: ``dbot_ros_tpu_torch.config`` loads the same keys.
 
 Takes numpy arrays only (call ``np.asarray`` on JAX leaves first), so the
 port still never imports jax. Field names match the JAX dataclasses:
@@ -113,3 +115,46 @@ def belief_from_numpy(states, log_weights, occlusion, num_pixels: int,
         occlusion=occlusion_from_jax(occlusion, states.shape[0],
                                      num_pixels, nb, age, occ_dtype,
                                      device))
+
+
+def _npz_leaf(data, name):
+    """One array of a JAX-written checkpoint: bfloat16 was stored as a
+    uint16 view under ``name__bf16`` and comes back as float32 (exact)."""
+    if name + "__bf16" in data:
+        bits = np.asarray(data[name + "__bf16"]).astype(np.uint32) << 16
+        return bits.view(np.float32), True
+    if name in data:
+        return np.asarray(data[name]), False
+    return None, False
+
+
+def checkpoint_from_jax(path, num_pixels: int, nb: int = 64,
+                        occ_dtype=None, device=None) -> ParticleBelief:
+    """Read a particle checkpoint written by the JAX package's
+    ``runtime.checkpoint.save_belief`` into the port's belief.
+
+    The occlusion field is a (P, N) map, the fused sensor's kernel layout
+    ``(n_pad·pr, 128)``, or the lazy ``(q, age)`` pair of leaves; it goes
+    through :func:`occlusion_from_jax`. ``nb`` must be the JAX sensor's
+    pixel block. ``occ_dtype`` defaults to the stored one (bfloat16 where
+    the file tags it, else float32). The JAX belief's PRNG key is
+    dropped: seed a ``torch.Generator`` instead.
+    """
+    data = np.load(path, allow_pickle=False)
+    kind = str(data["__kind__"])
+    if kind != "particle":
+        raise NotImplementedError(
+            f"{kind!r} checkpoints are not ported yet (ROADMAP queue A "
+            "item 10, the RGF stack)")
+    occ, is_bf16 = _npz_leaf(data, "occlusion")
+    age = None
+    if occ is None:
+        occ, is_bf16 = _npz_leaf(data, "occlusion__0")
+        age, _ = _npz_leaf(data, "occlusion__1")
+        if occ is None:
+            raise KeyError("checkpoint has no occlusion field")
+    if occ_dtype is None:
+        occ_dtype = torch.bfloat16 if is_bf16 else torch.float32
+    return belief_from_numpy(data["states"], data["log_weights"], occ,
+                             num_pixels, age=age, nb=nb,
+                             occ_dtype=occ_dtype, device=device)

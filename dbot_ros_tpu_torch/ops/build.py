@@ -21,12 +21,15 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "fused_loglik.cu", _PKG / "csrc" / "pixel_rows.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "fused_loglik.cu", "pixel_rows.cu", "lineage_gather.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # No --use_fast_math (NaN tests and exact division must survive);
 # -fmad=false rounds op by op like the plain PyTorch versions.
+# --threads 0 compiles the sources side by side.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "--threads", "0", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,8 @@ _SIGNATURES = {
     "dbot_fused_loglik_f32": [_VP] * 10 + [_I] * 4 + [_VP],
     "dbot_gather_pixel_rows": [_VP, _VP, _VP, _I, _LL, _VP],
     "dbot_scatter_pixel_rows": [_VP, _VP, _VP, _I, _LL, _VP],
+    "dbot_lineage_gather_b16": [_VP, _VP, _VP, _I, _I, _VP],
+    "dbot_lineage_gather_b32": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 

@@ -232,9 +232,11 @@ class FusedSensor:
     ``device`` defaults to the camera's; meshes and parameters are moved
     there. The barycentric slack is always the automatic one.
 
-    Not ported: the TPU-only ``lineage_gather`` modes (only ``"take"``),
-    ``merge="select"`` (only ``"scatter"``), the distributed-exchange
-    hooks (``concat_occlusion``, ``where_occlusion``, ``particle_stride``),
+    ``lineage_gather`` accepts the reference's ``"take"`` and ``"pallas"``
+    so that its configs keep loading; both are the same function here
+    (``kernels.lineage_gather``). Not ported: the TPU-only ``"grouped"``
+    and ``"windowed"`` modes, ``merge="select"`` (only ``"scatter"``),
+    the distributed-exchange hooks (``concat_occlusion``, ``where_occlusion``, ``particle_stride``),
     and the reference's experiment options ``active_cap_frac``,
     ``tri_cap_frac``, a fixed ``bary_slack`` and ``reference_poses``.
     """
@@ -245,10 +247,12 @@ class FusedSensor:
                  merge="scatter", occ_dtype=torch.bfloat16, device=None):
         from dbot_ros_tpu_torch.ops import slack as slack_mod
 
-        if lineage_gather != "take":
+        if lineage_gather not in ("take", "pallas"):
             raise NotImplementedError(
-                f"lineage_gather={lineage_gather!r}: only 'take' is ported "
-                "(ROADMAP queue B, lineage_gather_pallas)")
+                f"lineage_gather={lineage_gather!r}: the 'grouped' and "
+                "'windowed' modes are TPU workarounds that are never "
+                "ported (ROADMAP queue A item 13); 'take' and 'pallas' "
+                "both select the port's one lineage-gather kernel")
         if merge != "scatter":
             raise NotImplementedError(
                 f"merge={merge!r}: only 'scatter' is ported "
@@ -304,14 +308,17 @@ class FusedSensor:
 
     def gather_occlusion(self, occ, parent_idx):
         """Particle-lineage gather ``out[n, p'] = q[n, idx[p']]`` on the map
-        (resampling). Padding particles keep their own columns; indices
-        are clamped into range. Ages are per pixel and do not move."""
+        (resampling), through ``kernels.lineage_gather``. Padding
+        particles keep their own columns; indices are clamped into range.
+        Ages are per pixel and do not move. The result is a new map; the
+        input map is left as it was."""
         q, age = self._unpack_occ(occ)
         p_pad = q.shape[1]
         idx = torch.cat([
-            parent_idx.to(torch.int64),
-            torch.arange(parent_idx.shape[0], p_pad, device=q.device)])
-        out = q.index_select(1, idx.clamp(0, p_pad - 1))
+            parent_idx.to(torch.int32),
+            torch.arange(parent_idx.shape[0], p_pad, dtype=torch.int32,
+                         device=q.device)]).clamp_(0, p_pad - 1)
+        out = kernels.lineage_gather(q, idx)
         return out if age is None else (out, age)
 
     def occlusion_as_pn(self, occ, num_particles):

@@ -1,6 +1,6 @@
 """Wrappers of the port's CUDA kernels, each beside its plain PyTorch version.
 
-Three kernels carry the fused sensor's main path (sources in csrc/):
+Four kernels carry the tracker's main path (sources in csrc/):
 
 =====================  ===================  =================================
 wrapper                CUDA source          replaces (Pallas, TPU)
@@ -11,6 +11,7 @@ wrapper                CUDA source          replaces (Pallas, TPU)
                                             raycast_pallas.py:192, :640)
 ``gather_pixel_rows``  pixel_rows.cu        ``gather_pixel_rows`` (:584)
 ``scatter_pixel_rows`` pixel_rows.cu        ``scatter_pixel_rows`` (:508)
+``lineage_gather``     lineage_gather.cu    ``lineage_gather_pallas`` (:430)
 =====================  ===================  =================================
 
 Dispatch: a tensor on the CPU goes to the plain version (``*_plain``); a
@@ -272,3 +273,51 @@ def scatter_pixel_rows(q, vals, sel):
 
 
 scatter_pixel_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Particle-lineage gather along the particle axis of the occlusion map
+# ---------------------------------------------------------------------------
+
+def lineage_gather_plain(q, idx):
+    """``out[n, c] = q[n, idx[c]]`` (plain PyTorch version)."""
+    return q.index_select(1, idx.long())
+
+
+def lineage_gather(q, idx):
+    """Resampling lineage gather ``out[n, c] = q[n, idx[c]]`` on the
+    ``(n_pad, p_pad)`` map, exact for any ``idx`` (sorted or not).
+
+    ``idx`` has one entry per column of ``q``, each in ``[0, p_pad)``
+    (the caller clamps; the kernel clamps again rather than read outside
+    the map). On CUDA: ``q`` is bfloat16 or float32, contiguous, with
+    16-byte rows; ``idx`` is int32 (convert the resampler's int64 parents
+    once per call). Out of place: the result is a new buffer the size of
+    the map, owned by the caller; ``q`` is only read and is freed when
+    the caller drops the old belief.
+    """
+    if not q.is_cuda:
+        return lineage_gather_plain(q, idx)
+    _check("q", q, (torch.bfloat16, torch.float32), 2, q.device)
+    _check("idx", idx, (torch.int32,), 1, q.device)
+    n_rows, p_pad = q.shape
+    if idx.shape[0] != p_pad:
+        raise ValueError(f"idx must have one entry per column of q "
+                         f"({p_pad}), got {idx.shape[0]}")
+    if (p_pad * q.element_size()) % 16 or q.data_ptr() % 16:
+        raise ValueError("rows of q must be 16-byte multiples and aligned "
+                         f"(row of {p_pad * q.element_size()} B)")
+    out = torch.empty_like(q)
+    if n_rows == 0 or p_pad == 0:
+        return out
+    lib = _lib()
+    entry = (lib.dbot_lineage_gather_b16 if q.element_size() == 2
+             else lib.dbot_lineage_gather_b32)
+    err = entry(q.data_ptr(), idx.data_ptr(), out.data_ptr(), n_rows, p_pad,
+                _stream(q))
+    lineage_gather.launches += 1
+    _raise_on(err, "lineage_gather launch")
+    return out
+
+
+lineage_gather.launches = 0

@@ -2,21 +2,23 @@
 
 Port of ``run`` and ``TrackRun`` from ``dbot_ros_tpu/runtime/node.py``:
 wire a frame source to a tracker, collect per-frame metrics and the
-estimated trajectory, and (with ground truth) report pose RMSE. Not
-ported yet: checkpointing, the watchdog and the control service
-(passing any of them raises NotImplementedError).
+estimated trajectory, checkpoint the belief, re-acquire through the
+watchdog, and (with ground truth) report pose RMSE. Not ported yet: the
+control service (passing one raises NotImplementedError).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import sys
 import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from dbot_ros_tpu.runtime.metrics import FrameMetrics, MetricsLog
+from dbot_ros_tpu_torch.runtime.metrics import FrameMetrics, MetricsLog
 from dbot_ros_tpu_torch.utils import se3
 
 
@@ -28,6 +30,8 @@ class TrackRun:
     metrics: MetricsLog
     ground_truth: Optional[np.ndarray] = None   # (T, K, 7) if source had it
     reinit_frames: List[int] = dataclasses.field(default_factory=list)
+    # seconds each watchdog re-init (the 6-DoF search) took
+    reinit_seconds: List[float] = dataclasses.field(default_factory=list)
 
     def position_errors(self):
         if self.ground_truth is None:
@@ -79,13 +83,24 @@ def run(tracker, source, initial_pose=None,
       source: iterable of runtime.sources.Frame.
       initial_pose: model-frame pose(s); defaults to the source's first
         ground truth.
-      on_frame: optional callback(frame, poses, info).
-      checkpoint_path, watchdog, service: not ported yet.
+      on_frame: optional callback(frame, poses, info), the publisher
+        hook; ``poses`` is a (K, 7) numpy array.
+      checkpoint_path, checkpoint_every: save the belief (and the
+        tracker's generator state) every ``checkpoint_every`` frames.
+      watchdog: optional runtime.watchdog.TrackingWatchdog, fed every
+        frame's StepInfo. When it trips, the tracker is re-initialized
+        from the *current* frame by the 6-DoF search
+        (runtime.initializer.initialize_tracker) racing at least two
+        hypotheses. Tripped frame indices land in
+        ``TrackRun.reinit_frames``.
+      reinit_kwargs: forwarded to that search (n_axes, n_spins,
+        refine_particles, depth range: speed against robustness).
+      service: the control service, not ported yet.
     """
-    if checkpoint_path or watchdog is not None or service is not None:
+    if service is not None:
         raise NotImplementedError(
-            "checkpoint, watchdog and service are not ported yet "
-            "(ROADMAP queue A, 'Checkpoint, watchdog and service')")
+            "the control service is not ported yet (ROADMAP queue A, "
+            "'What the first slices left out': service)")
     frames = iter(source)
     first = next(frames)
 
@@ -98,11 +113,19 @@ def run(tracker, source, initial_pose=None,
                     "no initial pose, tracker not initialized, and source "
                     "has no ground truth")
             initial_pose = first.ground_truth
-        tracker.initialize(initial_pose)
+        if "first_frame" in inspect.signature(
+                tracker.initialize).parameters:
+            tracker.initialize(initial_pose, first_frame=first.depth)
+        else:
+            tracker.initialize(initial_pose)
 
     poses_out: List[np.ndarray] = []
     gt_out: List[np.ndarray] = []
+    reinit_frames: List[int] = []
+    reinit_seconds: List[float] = []
     log = MetricsLog()
+    num_particles = getattr(getattr(tracker, "config", None),
+                            "evaluation_count", None)
     # frames dropped by a push source propagate over the real interval
     base_dt = getattr(tracker, "_dt", None)
 
@@ -129,6 +152,32 @@ def run(tracker, source, initial_pose=None,
         log.append(m)
         if on_frame is not None:
             on_frame(frame, poses, info)
+        if watchdog is not None and watchdog.update(info, num_particles):
+            # tracking lost: global re-acquisition on the current frame.
+            # Contained: a degenerate frame (an all-NaN burst, exactly the
+            # frames that trip the dog) must not kill the run; the
+            # watchdog re-arms and retries on a later frame.
+            from dbot_ros_tpu_torch.runtime.initializer import \
+                initialize_tracker
+            t_search = time.perf_counter()
+            try:
+                # flip-aware recovery: a re-init after a lock-in races at
+                # least 2 beam hypotheses, because the wrong basin can
+                # win the single-frame search argmax
+                initialize_tracker(tracker, frame.depth,
+                                   **{"min_hypotheses": 2,
+                                      "reuse_background": True,
+                                      **(reinit_kwargs or {})})
+                reinit_frames.append(frame.index)
+                reinit_seconds.append(time.perf_counter() - t_search)
+            except Exception as e:  # noqa: BLE001 - keep tracking
+                print(f"watchdog re-init failed on frame {frame.index}: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr)
+        if checkpoint_path and checkpoint_every \
+                and (frame.index + 1) % checkpoint_every == 0:
+            from dbot_ros_tpu_torch.runtime.checkpoint import save_belief
+            save_belief(checkpoint_path, tracker.belief,
+                        generator=getattr(tracker, "generator", None))
 
     handle(first)
     for frame in frames:
@@ -140,4 +189,5 @@ def run(tracker, source, initial_pose=None,
                else np.zeros((0, num_objects, 7))),
         metrics=log,
         ground_truth=np.stack(gt_out) if gt_out and
-        len(gt_out) == len(poses_out) else None)
+        len(gt_out) == len(poses_out) else None,
+        reinit_frames=reinit_frames, reinit_seconds=reinit_seconds)

@@ -1,10 +1,16 @@
-"""Depth-frame sources: synthetic simulation.
+"""Depth-frame sources: recorded replay and synthetic simulation.
 
-Port of ``Frame`` and ``SyntheticSource`` from
-``dbot_ros_tpu/runtime/sources.py``: render a scripted ground-truth
-trajectory through the production raycaster and add sensor noise and
+Port of ``Frame``, ``ReplaySource``, ``record_npz``, ``SyntheticSource``
+and ``scale_camera`` from ``dbot_ros_tpu/runtime/sources.py``.
+:class:`ReplaySource` replays an ``.npz``/``.npy`` depth stack (the file
+format is the reference's, so a recording made by either package replays
+in the other); :class:`SyntheticSource` renders a scripted ground-truth
+trajectory through the production raycaster and adds sensor noise and
 dropout, drawn from a ``torch.Generator`` seeded from ``seed``. Sources
 iterate ``Frame(index, depth, ground_truth)``.
+
+Not ported yet: ``OracleSource``, ``ThreadedSource`` and
+``U16CameraAdapter`` (constructing one raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 
 from dbot_ros_tpu_torch.ops.raycast import raycast_depth
 from dbot_ros_tpu_torch.trackers.base import to_center_frame
-from dbot_ros_tpu_torch.utils.camera import CameraModel
+from dbot_ros_tpu_torch.utils.camera import CameraModel, make_camera
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
 
 
@@ -28,6 +34,46 @@ class Frame:
     ground_truth: Optional[np.ndarray] = None  # (K, 7) model-frame poses
     # frames dropped since the last one; None = pull source
     skipped: Optional[int] = None
+
+
+class ReplaySource:
+    """Replay a recorded depth sequence from .npz/.npy.
+
+    Accepted layouts:
+      * .npz with ``depth`` (T, H, W) and optional ``poses`` (T, K, 7);
+      * .npy with just the (T, H, W) depth stack.
+    Depth in meters, NaN/0/negative = invalid. Frames stay numpy arrays
+    on the host; the tracker moves each to its device.
+    """
+
+    def __init__(self, path: str):
+        if str(path).endswith(".npz"):
+            data = np.load(path)
+            self.depth = np.asarray(data["depth"], np.float32)
+            self.poses = (np.asarray(data["poses"], np.float32)
+                          if "poses" in data else None)
+        else:
+            self.depth = np.asarray(np.load(path), np.float32)
+            self.poses = None
+        if self.depth.ndim != 3:
+            raise ValueError(f"depth stack must be (T, H, W), "
+                             f"got {self.depth.shape}")
+
+    def __len__(self):
+        return self.depth.shape[0]
+
+    def __iter__(self) -> Iterator[Frame]:
+        for t in range(len(self)):
+            gt = self.poses[t] if self.poses is not None else None
+            yield Frame(t, self.depth[t], gt)
+
+
+def record_npz(path: str, depth_stack, poses=None):
+    """Write a replay file: ``depth`` (T, H, W) and optional ``poses``."""
+    arrays = {"depth": np.asarray(depth_stack, np.float32)}
+    if poses is not None:
+        arrays["poses"] = np.asarray(poses, np.float32)
+    np.savez_compressed(path, **arrays)
 
 
 class SyntheticSource:
@@ -83,3 +129,29 @@ class SyntheticSource:
                 poses = poses[None]
             z = self.render(torch.as_tensor(poses, device=self.device))
             yield Frame(t, z.cpu().numpy(), poses)
+
+
+def scale_camera(camera: CameraModel, factor: int) -> CameraModel:
+    """A camera with ``factor``× the resolution and intrinsics: the native
+    sensor grid whose strided downsample lands back on ``camera``."""
+    K = camera.camera_matrix.detach().cpu().numpy().astype(np.float64)
+    K[:2, :] *= factor
+    return make_camera(K, camera.height * factor, camera.width * factor,
+                       device=camera.rays.device)
+
+
+def _not_ported(name: str):
+    class NotPorted:
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP queue A, 'What the "
+                "first slices left out': the oracle, threaded and u16 "
+                "sources)")
+
+    NotPorted.__name__ = NotPorted.__qualname__ = name
+    return NotPorted
+
+
+OracleSource = _not_ported("OracleSource")
+ThreadedSource = _not_ported("ThreadedSource")
+U16CameraAdapter = _not_ported("U16CameraAdapter")

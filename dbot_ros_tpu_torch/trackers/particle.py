@@ -2,12 +2,13 @@
 
 Port of ``dbot_ros_tpu/trackers/particle.py``: a host-side stateful
 wrapper around the RBC-PF step that owns the belief, the random
-generator, output smoothing and the model↔centre frame conversions
-(``tracker.initialize(poses); tracker.track(depth)``).
+generator, output smoothing, the model↔centre frame conversions
+(``tracker.initialize(poses); tracker.track(depth)``) and the island
+trial of racing init hypotheses.
 
-Not ported yet: the island trial of two or more racing hypotheses and
-its chain-free pose score (``initialize(hypotheses=...)`` with H ≥ 2
-raises NotImplementedError).
+The tracker runs on the card: ``device=None`` means ``cuda``, and a
+machine without CUDA raises. Pass ``device="cpu"`` to run the kernels'
+plain versions on the CPU, as the tests do.
 """
 
 from __future__ import annotations
@@ -18,17 +19,33 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dbot_ros_tpu import config as cfg
+from dbot_ros_tpu_torch import config as cfg
 from dbot_ros_tpu_torch.filters import rbcpf
 from dbot_ros_tpu_torch.models import beam, occlusion, transition
-from dbot_ros_tpu_torch.models.sensor import make_rb_sensor
+from dbot_ros_tpu_torch.models.image_loglik import image_loglik
+from dbot_ros_tpu_torch.models.sensor import make_rb_sensor, render_scene
 from dbot_ros_tpu_torch.ops import resample as rs
+from dbot_ros_tpu_torch.ops.budget import xla_tri_chunk
 from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.camera import (CameraModel,
                                              default_kinect_camera,
                                              make_camera, preprocess_depth)
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh, load_obj
+
+# at most this many hypotheses race as islands
+MAX_ISLANDS = 4
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card. Never falls
+    back to the CPU: without CUDA the default raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the tracker runs on the card by default; "
+            "pass device='cpu' (--device cpu) to run on the CPU")
+    return device
 
 
 def build_camera(camera_cfg: cfg.CameraConfig, device=None) -> CameraModel:
@@ -47,16 +64,30 @@ def build_meshes(object_cfg: cfg.ObjectConfig,
             for p in object_cfg.mesh_paths()]
 
 
+def island_generator(seed: int, slot: int, device) -> torch.Generator:
+    """The random stream of island ``slot``: slot 0 is the tracker's own
+    stream (seeded from ``seed`` alone), every other slot its own,
+    seeded from ``(seed, slot)``."""
+    gen = torch.Generator(device=device)
+    if slot == 0:
+        gen.manual_seed(seed)
+    else:
+        gen.manual_seed(int(np.random.SeedSequence(
+            [int(seed) & 0xFFFFFFFF, slot]).generate_state(1)[0]))
+    return gen
+
+
 class ParticleTracker:
     """User-facing particle tracker (one or more rigid objects) on
-    ``device`` (default: the CPU). Build from a config, or pass meshes
-    and camera directly; they are moved to the device."""
+    ``device`` (default: ``cuda``; raises without it). Build from a
+    config, or pass meshes and camera directly; they are moved to the
+    device."""
 
     def __init__(self, config: cfg.ParticleTrackerConfig,
                  meshes: Optional[List[TriangleMesh]] = None,
                  camera: Optional[CameraModel] = None, device=None):
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         camera = camera if camera is not None else build_camera(
             config.camera)
         self.camera = camera.to(self.device)
@@ -84,45 +115,110 @@ class ParticleTracker:
             frame_rate=config.camera.frame_rate, backend=config.backend,
             device=self.device, **(config.backend_options or {}))
         self._dt = 1.0 / config.camera.frame_rate
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed)
+        self.generator = island_generator(config.seed, 0, self.device)
         self.belief: Optional[rbcpf.ParticleBelief] = None
         self._smoothed = None  # (K, 7) centred-frame smoothed poses
+        # multi-hypothesis island trial (see initialize())
+        self._trial = None
 
     @property
     def centers(self):
         return torch.stack([m.center for m in self.meshes])  # (K, 3)
 
-    def initialize(self, poses_model, hypotheses=None):
-        """Set the initial object pose(s), in the original mesh frame, and
-        re-seed the generator from ``config.seed``.
+    @property
+    def trial_active(self):
+        """Number of racing island hypotheses, or None outside a trial
+        (surfaced into FrameMetrics: per-frame latency multiplies by it
+        during a trial)."""
+        return len(self._trial["beliefs"]) if self._trial else None
 
-        ``hypotheses`` with two or more entries would start the island
-        trial, which is not ported (NotImplementedError); with one entry
-        they are ignored, as in the reference.
-        """
-        if hypotheses is not None and np.asarray(hypotheses).ndim >= 2 \
-                and np.asarray(hypotheses).shape[0] >= 2:
-            raise NotImplementedError(
-                "island trials of >= 2 hypotheses are not ported yet "
-                "(ROADMAP queue A, 'Island trials with _pose_score')")
-        poses_model = torch.as_tensor(poses_model, dtype=torch.float32,
-                                      device=self.device)
-        if poses_model.ndim == 1:
-            poses_model = poses_model[None]
-        poses_center = base.to_center_frame(poses_model, self.centers)
-        self.generator.manual_seed(self.config.seed)
-        self.belief = rbcpf.init_belief(
+    def _pose_score(self, mean_state, z_obs):
+        """Chain-free pose score for the island race: an island's
+        posterior-mean state re-evaluated against the frame with the
+        occlusion chain reset to its initial prior. Racing on the
+        filter's own mean loglik launders: within a few frames the chain
+        marks a wrong basin's persistent misfit pixels as occluded, and a
+        flipped pose's per-frame marginal overtakes the right one."""
+        n_px = self.camera.num_pixels
+        depth = render_scene(self.meshes, mean_state[None, :, :7],
+                             self.camera.rays, xla_tri_chunk(1, n_px))
+        occ0 = self.occ_params.initial_occlusion_prob.expand(1, n_px)
+        ll, _ = image_loglik(depth, z_obs, occ0, self.beam_params,
+                             self.occ_params, 1.0)
+        return ll[0]
+
+    def _poses(self, poses):
+        """Poses given as a tensor or array-like → float32 on the device."""
+        if not isinstance(poses, torch.Tensor):
+            poses = np.asarray(poses, np.float32)
+        return torch.as_tensor(poses, dtype=torch.float32,
+                               device=self.device)
+
+    def _make_belief(self, poses_center, generator=None):
+        return rbcpf.init_belief(
             poses_center, self.config.evaluation_count,
             self.camera.num_pixels,
             float(self.occ_params.initial_occlusion_prob),
-            sensor=self.sensor, generator=self.generator)
+            sensor=self.sensor, generator=generator, device=self.device)
+
+    def initialize(self, poses_model, hypotheses=None,
+                   hypothesis_logits=None, trial_frames: int = 8,
+                   trial_switch_margin: float = 2.0):
+        """Set the initial object pose(s), in the original mesh frame, and
+        re-seed the generator from ``config.seed``.
+
+        ``hypotheses`` (H, 7) | (H, K, 7) model-frame poses (the
+        automatic initializer's refined beams): with H ≥ 2 the best four
+        by ``hypothesis_logits`` race as **separate island beliefs** for
+        ``trial_frames`` frames. The best accumulated chain-free pose
+        score (see ``_pose_score``) wins and the rest are dropped; the
+        search argmax (slot 0) is published meanwhile and kept unless a
+        challenger wins by ``trial_switch_margin`` nats per frame.
+        Islands protect each basin from cross-hypothesis resampling
+        while evidence accumulates: in one mixed cloud the first KL
+        resample annihilates a hypothesis that arrived a few nats
+        under-refined. Each island owns its occlusion map (the sensor
+        updates a map in place) and draws from its own generator
+        (``island_generator``). With fewer than two hypotheses they are
+        ignored, as in the reference.
+        """
+        poses_model = self._poses(poses_model)
+        if poses_model.ndim == 1:
+            poses_model = poses_model[None]
+        poses_center = base.to_center_frame(poses_model, self.centers)
+        self.generator = island_generator(self.config.seed, 0, self.device)
+        self._trial = None
+        hyp = None
+        if hypotheses is not None:
+            hyp = self._poses(hypotheses)
+            if hyp.ndim == 2:
+                hyp = hyp[:, None]           # (H, 7) → (H, 1, 7)
+
+        if hyp is not None and hyp.shape[0] >= 2:
+            order = (list(np.argsort(-_host(hypothesis_logits),
+                                     kind="stable"))
+                     if hypothesis_logits is not None
+                     else list(range(hyp.shape[0])))[:MAX_ISLANDS]
+            generators = [island_generator(self.config.seed, i + 1,
+                                           self.device) for i in order]
+            beliefs = [self._make_belief(
+                base.to_center_frame(hyp[i], self.centers), g)
+                for i, g in zip(order, generators)]
+            self._trial = {"beliefs": beliefs, "generators": generators,
+                           "scores": [0.0] * len(beliefs),
+                           "left": int(trial_frames), "elapsed": 0,
+                           "margin": float(trial_switch_margin)}
+            self.belief = beliefs[0]
+        else:
+            self.belief = self._make_belief(poses_center, self.generator)
         self._smoothed = poses_center
 
     def restore(self, belief: rbcpf.ParticleBelief):
-        """Resume from a saved belief. The tracker takes a copy of the
-        occlusion map, which ``track`` updates in place, so ``belief``
-        itself stays as it was."""
+        """Resume from a saved belief (runtime/checkpoint.py); ends a
+        running trial. The tracker takes a copy of the occlusion map,
+        which ``track`` updates in place, so ``belief`` itself stays as
+        it was."""
+        self._trial = None
         occ = belief.occlusion
         occ = ((occ[0].clone(), *occ[1:]) if isinstance(occ, (tuple, list))
                else occ.clone())
@@ -130,6 +226,12 @@ class ParticleTracker:
         ln, _ = rs.normalize_log_weights(belief.log_weights)
         mean = se3.states_mean(belief.states, torch.exp(ln))
         self._smoothed = mean[:, :7]
+
+    def _step(self, belief, z, dt, generator):
+        return rbcpf.rbcpf_step(
+            belief, z, self.sensor, self.trans_params, dt,
+            max_kl_divergence=self.config.max_kl_divergence,
+            generator=generator)
 
     def track(self, depth_image, dt=None):
         """One frame → (poses (K, 7) in the model frame, StepInfo).
@@ -144,12 +246,47 @@ class ParticleTracker:
             depth_image, dtype=torch.float32,
             device=self.device).reshape(-1))
         dt = float(np.float32(self._dt if dt is None else dt))
-        self.belief, info = rbcpf.rbcpf_step(
-            self.belief, z, self.sensor, self.trans_params, dt,
-            max_kl_divergence=self.config.max_kl_divergence,
-            generator=self.generator)
+        trial = self._trial
+        if trial:
+            infos, scores = [], []
+            for i, b in enumerate(trial["beliefs"]):
+                trial["beliefs"][i], info_i = self._step(
+                    b, z, dt, trial["generators"][i])
+                scores.append(self._pose_score(info_i.mean_state, z))
+                infos.append(info_i)
+            # one host read for all islands
+            for i, s in enumerate(torch.stack(scores).tolist()):
+                trial["scores"][i] += s
+            trial["left"] -= 1
+            trial["elapsed"] += 1
+            if trial["left"] <= 0:
+                # commit once, at trial end: the search argmax holds
+                # unless a challenger wins the accumulated score by the
+                # margin
+                best = int(np.argmax(trial["scores"]))
+                if best != 0 and (trial["scores"][best]
+                                  - trial["scores"][0]
+                                  < trial["margin"] * trial["elapsed"]):
+                    best = 0
+                self.belief = trial["beliefs"][best]
+                self.generator = trial["generators"][best]
+                info = infos[best]
+                self._trial = None
+            else:
+                self.belief = trial["beliefs"][0]
+                info = infos[0]
+        else:
+            self.belief, info = self._step(self.belief, z, dt,
+                                           self.generator)
         new_poses = info.mean_state[:, :7]
         self._smoothed = base.moving_average_pose(
             self._smoothed, new_poses,
             self.config.moving_average_update_rate)
         return base.to_model_frame(self._smoothed, self.centers), info
+
+
+def _host(x):
+    """A tensor or array-like as a float numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)

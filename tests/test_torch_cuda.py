@@ -116,3 +116,37 @@ def test_pixel_rows_match_plain(cuda):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         kernels.scatter_pixel_rows(a, shifted, sel)
+
+
+def test_lineage_gather_matches_plain_and_checks_its_arguments(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for dtype, shape in ((torch.bfloat16, (333, 1288)),
+                         (torch.float32, (64, 2052))):
+        q = torch.rand(shape, generator=g, device=cuda).to(dtype)
+        p_pad = shape[1]
+        sorted_idx = torch.sort(torch.randint(
+            0, p_pad, (p_pad,), generator=g, device=cuda)).values
+        for idx in (sorted_idx,
+                    torch.full((p_pad,), 77, device=cuda),
+                    torch.arange(p_pad, device=cuda),
+                    torch.randperm(p_pad, generator=g, device=cuda)):
+            idx = idx.to(torch.int32)
+            before = kernels.lineage_gather.launches
+            out = kernels.lineage_gather(q, idx)
+            assert kernels.lineage_gather.launches == before + 1
+            assert torch.equal(out, kernels.lineage_gather_plain(q, idx))
+            assert out.data_ptr() != q.data_ptr()
+    q = torch.rand((64, 256), generator=g, device=cuda).to(torch.bfloat16)
+    idx = torch.arange(256, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):                  # resampler's int64
+        kernels.lineage_gather(q, idx.long())
+    with pytest.raises(TypeError):
+        kernels.lineage_gather(q.to(torch.float16), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.lineage_gather(q.T, idx[:64])
+    with pytest.raises(ValueError, match="one entry per column"):
+        kernels.lineage_gather(q, idx[:128])
+    with pytest.raises(ValueError):                 # idx on another device
+        kernels.lineage_gather(q, idx.cpu())
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.lineage_gather(q[:, :100].contiguous(), idx[:100])
