@@ -12,20 +12,30 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    pixels, 2 candidates, 288 packed triangles; the full 4800-pixel map),
    with the tolerances stated below, and times both with CUDA events:
    device time per call (CUDA-graph replay) and time per call from
-   Python. The lineage gather runs on four parent vectors (systematic
-   parents of a real step's weights, one parent for all, the identity, a
-   random permutation) in bfloat16 and once in float32, bit-exact. Each
-   kernel's bound (the least time the card could take: bytes over the
-   memory rate, operations over the float32 rate) is computed from the
-   run's inputs, and the one PyTorch call that computes the same
-   function, where there is one, is timed beside it;
+   Python. The fused kernel is also held to its plain version, and
+   timed, on a candidate table in which no pixel shares a slab with a
+   neighbour, on one in which every pixel misses, at the ladder's second
+   level (2432 pixels, 1056 packed triangles) and at the full level
+   (4800 pixels, 1408 triangles) on nearer scenes, in float32, and twice
+   on the same inputs (the same bits). The lineage gather runs on four
+   parent vectors (systematic parents of a real step's weights, one
+   parent for all, the identity, a random permutation) in bfloat16 and
+   once in float32, bit-exact. Both
+   are also timed cold: over copies of their inputs that together exceed
+   the L2 cache, taken in turns; a device copy and a fill of the map are
+   timed beside the lineage gather as yardsticks. Each kernel's bound
+   (the least time the card could take: bytes over the memory rate,
+   operations over the float32 rate) is computed from the run's inputs,
+   and the one PyTorch call that computes the same function, where there
+   is one, is timed beside it;
 4. sensor: the fused sensor on the card against the same sensor on the
    CPU (plain kernels) on a small scene, three frames with lazy ages;
 5. slice: ``ParticleTracker`` (10,000 particles, 80×60 Kinect frame,
    1280-face icosphere padded to 1408 triangles, backend "pallas")
    driven by ``runtime.node.run`` over a 60-frame synthetic trajectory;
    every frame must launch all four kernels, and the position RMSE
-   must stay under 1 cm. Then the median ms per ``track`` call;
+   must stay under 1 cm. Then the median ms per ``track`` call, and the
+   device memory the slice holds and one step adds;
 6. profile: ``torch.profiler`` over 10 ``track`` calls — device busy ms
    per step, idle share, kernels per step, the largest kernels (the full
    table goes to ``build/profile_step.txt``);
@@ -81,6 +91,15 @@ WARMUP = 5
 LL_RTOL, LL_ATOL_PER_PIXEL = 1e-5, 1e-4
 # occ': the same f32 math rounded to bf16 by both; 1 bf16 ulp allowed
 OCC_ULPS = 1
+# float32 maps: the same operations; expf/logf of the two may differ in
+# the last place
+OCC_F32_ATOL = 1e-6
+# cold timings run over this many copies of a kernel's inputs
+COLD_COPIES = 4
+# lineage_gather.cu's tiling (kThreads * kVpt vectors of 16 bytes per
+# column tile, 512-byte chunks, at most 256 of them, a 96 KB ring)
+LINEAGE_TILE_VECS, LINEAGE_CHUNK = 480 * 3, 512
+LINEAGE_MAX_CHUNKS, LINEAGE_RING = 256, 96 * 1024
 PROFILE_TABLE = Path(__file__).resolve().parent / "build" / "profile_step.txt"
 # published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside
 # the tensor cores (none of the four kernels uses them)
@@ -131,22 +150,33 @@ def _events_ms(run, count):
     return start.elapsed_time(end) / count
 
 
-def device_ms(fn):
+def device_ms(fn, warmup=WARMUP, replays=GRAPH_REPLAYS, runs=TIMING_RUNS):
     """Median device time of one call of ``fn``: the call is captured once
     in a CUDA graph and replayed back to back between CUDA events, so the
     host's launch cost is not counted."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(WARMUP):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
     graph.replay()
-    return statistics.median(_events_ms(graph.replay, GRAPH_REPLAYS)
-                             for _ in range(TIMING_RUNS))
+    return statistics.median(_events_ms(graph.replay, replays)
+                             for _ in range(runs))
+
+
+def cold_device_ms(fns):
+    """Device time of one call with its inputs cold: ``fns`` are the same
+    call on copies of its inputs that together exceed the L2 cache; one
+    graph runs them in turn, so each finds its inputs evicted by the
+    others'. The time of the round over the number of calls."""
+    def round_():
+        for fn in fns:
+            fn()
+    return device_ms(round_) / len(fns)
 
 
 def call_ms(fn):
@@ -236,6 +266,135 @@ def scene(dev, particles, camera, mesh, depth, seed):
     return states, torch.as_tensor(z, device=dev)
 
 
+def fused_inputs(sensor, cam, states, z, level, g, dtype=torch.bfloat16):
+    """The fused kernel's arguments as ``FusedSensor.__call__`` builds them
+    at one level of its compaction ladder (``None``: the full kernel, all
+    pixels and all triangles), with random ages and a random prior map.
+    Returns (args, sel, info); ``info['ladder_level']`` is the level the
+    sensor itself would run this scene at."""
+    dev = z.device
+    N = cam.num_pixels
+    p_pad = fs.particle_pad(states.shape[0])
+    cand = sensor.candidates(states)
+    book = sensor.selection(cand)
+    n_active, n_uniq = (int(v) for v in torch.stack(
+        [book["n_active"], book["n_uniq"]]).tolist())
+    caps = sensor.caps(N)
+    ladder = next((i for i, (pc, tc) in enumerate(caps)
+                   if n_active <= pc and n_uniq < tc), "full")
+    sel = None
+    if level is None:
+        check(N % sensor.nb == 0, "the full level would pad the pixels")
+        gt = sensor.pack_full(states, p_pad)
+        cand_k, z_k, rays = cand, z, cam.rays
+    else:
+        pcap, tcap = caps[level]
+        check(n_active <= pcap and n_uniq < tcap,
+              f"scene does not fit level {level}: {n_active=} {n_uniq=}")
+        sel, uniq = sensor.level_indices(book, pcap, tcap, N)
+        gt = sensor.pack_selected(states, p_pad, uniq)
+        inv = torch.clamp(book["cp"].to(torch.int64) - 1, 0, tcap - 1)
+        cand_k, z_k, rays = inv[cand][sel], z[sel], cam.rays[sel]
+    n = cand_k.shape[0]
+    ages = torch.randint(0, 6, (n,), generator=g, device=dev).float()
+    occ = torch.rand((n, p_pad), generator=g, device=dev).to(dtype)
+    params = fs.make_params_vec(sensor.bp, sensor.op, 1.0, 0.25)
+    args = (gt, occ, z_k.contiguous(), cand_k.to(torch.int32).contiguous(),
+            rays.contiguous(), ages, params)
+    return args, sel, {"n": n, "K": cand_k.shape[1], "T": gt.shape[0],
+                       "n_active": n_active, "n_uniq": n_uniq,
+                       "ladder_level": ladder}
+
+
+def check_fused(args, what):
+    """``fused_loglik`` against ``fused_loglik_plain`` on ``args`` with the
+    stated tolerances, and against itself (two runs, the same bits).
+    Returns the errors and the kernel's posterior map."""
+    ll_k, occ_k = kernels.fused_loglik(*args)
+    ll_2, occ_2 = kernels.fused_loglik(*args)
+    ll_p, occ_p = kernels.fused_loglik_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(ll_2, ll_k) and torch.equal(occ_2, occ_k),
+          f"fused kernel not deterministic ({what})")
+    ll_k, ll_p = ll_k[:P], ll_p[:P]
+    check(bool(torch.isfinite(ll_k).all()),
+          f"fused loglik not finite ({what})")
+    err = (ll_k - ll_p).abs()
+    bound = LL_RTOL * ll_p.abs() + LL_ATOL_PER_PIXEL * args[1].shape[0]
+    check(bool((err <= bound).all()),
+          f"fused loglik off ({what}): max err {err.max().item()}")
+    res = {"max_abs_err": err.max().item()}
+    if occ_k.dtype == torch.bfloat16:
+        ulps = (occ_k.view(torch.int16).int()
+                - occ_p.view(torch.int16).int()).abs().max().item()
+        check(ulps <= OCC_ULPS, f"fused occ' off by {ulps} bf16 ulps ({what})")
+        res["occ_max_ulps"] = ulps
+    else:
+        occ_err = (occ_k - occ_p).abs().max().item()
+        check(occ_err <= OCC_F32_ATOL, f"fused occ' off by {occ_err} ({what})")
+        res["occ_max_abs_err"] = occ_err
+    return res, occ_k
+
+
+def fused_bound(args):
+    """bytes: only the slabs some pixel's candidate names have to be read
+    (each once), the map rows in and out, the per-pixel inputs, loglik"""
+    gt, occ, cand = args[0], args[1], args[3]
+    n, p_pad = occ.shape
+    slabs_read = int(cand.unique().numel())
+    out = roofline(
+        slabs_read * gt[0].numel() * 4 + 2 * nbytes(occ)
+        + nbytes(*args[2:]) + 4 * p_pad,
+        n * p_pad * (FUSED_FLOPS_PER_CANDIDATE * cand.shape[1]
+                     + FUSED_FLOPS_PER_PIXEL))
+    out["slabs_read"] = slabs_read
+    out["bytes_all_slabs"] = nbytes(gt) + 2 * nbytes(occ)
+    return out
+
+
+def fused_other_shapes(dev, sensor, cam, mesh, tight_args, g):
+    """The fused kernel where the slice's frames do not take it: a
+    candidate table in which no pixel shares a slab with a neighbour (at
+    the tight level's shapes), float32 maps, and the ladder's second and
+    full levels on nearer scenes. Each is held to the plain version;
+    the kernel is timed as in the main comparison, the plain version with
+    a few replays only (it takes tens of ms at the full level)."""
+    out = {}
+    n, K = tight_args[3].shape
+    T = tight_args[0].shape[0]
+    scattered = ((torch.arange(n, device=dev)[:, None] * K
+                  + torch.arange(K, device=dev)) % (T - 1)).to(torch.int32)
+    cases = {
+        "tight_no_shared_slab": tight_args[:3] + (scattered,)
+        + tight_args[4:],
+        # no row on the silhouette: what the kernel costs before any beam
+        "tight_degenerate_only": tight_args[:3]
+        + (torch.full_like(scattered, T - 1),) + tight_args[4:],
+        "tight_f32": (tight_args[0], tight_args[1].float()) + tight_args[2:],
+    }
+    infos = {}
+    for name, level, depth in (("second_level", 1, 0.25),
+                               ("full_level", None, 0.13)):
+        states, z = scene(dev, P, cam, mesh, depth, SEED + 1)
+        cases[name], _, infos[name] = fused_inputs(sensor, cam, states, z,
+                                                   level, g)
+    check(infos["second_level"]["n"] == 2432
+          and infos["second_level"]["T"] == 1056
+          and infos["full_level"]["n"] == 4800
+          and infos["full_level"]["T"] == 1408,
+          f"unexpected level shapes {infos}")
+    for name, args in cases.items():
+        res, _ = check_fused(args, name)
+        res["ms"] = device_ms(lambda: kernels.fused_loglik(*args))
+        res["plain_ms"] = device_ms(
+            lambda: kernels.fused_loglik_plain(*args), warmup=1, replays=2,
+            runs=3)
+        res.update(fused_bound(args))
+        res.update(infos.get(name, {}))
+        out[name] = res
+    return out
+
+
 def phase_kernels(dev):
     cam = default_kinect_camera(8, device=dev)
     mesh = icosphere_mesh(radius=0.06, subdivisions=3, device=dev)
@@ -245,58 +404,26 @@ def phase_kernels(dev):
     states, z = scene(dev, P, cam, mesh, 0.8, SEED)
     N = cam.num_pixels
     p_pad = fs.particle_pad(P)
-
-    cand = sensor.candidates(states)
-    book = sensor.selection(cand)
-    pcap, tcap = sensor.caps(N)[0]
-    n_active, n_uniq = (int(v) for v in torch.stack(
-        [book["n_active"], book["n_uniq"]]).tolist())
-    check(n_active <= pcap and n_uniq < tcap,
-          f"scene does not fit the tight level: {n_active=} {n_uniq=}")
-    sel, uniq = sensor.level_indices(book, pcap, tcap, N)
-    gt = sensor.pack_selected(states, p_pad, uniq)
-    inv = torch.clamp(book["cp"].to(torch.int64) - 1, 0, tcap - 1)
-    cand_sel = inv[cand][sel].to(torch.int32).contiguous()
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    ages = torch.randint(0, 6, (pcap,), generator=g, device=dev).float()
-    occ = torch.rand((pcap, p_pad), generator=g,
-                     device=dev).to(torch.bfloat16)
-    params = fs.make_params_vec(bp, op, 1.0, 0.25)
-    args = (gt, occ, z[sel].contiguous(), cand_sel,
-            cam.rays[sel].contiguous(), ages, params)
-    shapes = {"n": pcap, "K": cand_sel.shape[1], "T": gt.shape[0],
-              "P": P, "p_pad": p_pad}
+
+    args, sel, info = fused_inputs(sensor, cam, states, z, 0, g)
+    shapes = {"n": info["n"], "K": info["K"], "T": info["T"], "P": P,
+              "p_pad": p_pad}
     check(shapes["n"] == 448 and shapes["T"] == 288,
           f"unexpected slice shapes {shapes}")
-
-    ll_k, occ_k = kernels.fused_loglik(*args)
-    ll_p, occ_p = kernels.fused_loglik_plain(*args)
-    torch.cuda.synchronize()
-    ll_k, ll_p = ll_k[:P], ll_p[:P]
-    check(bool(torch.isfinite(ll_k).all()), "fused loglik not finite")
-    err = (ll_k - ll_p).abs()
-    bound = LL_RTOL * ll_p.abs() + LL_ATOL_PER_PIXEL * pcap
-    ulps = (occ_k.view(torch.int16).int()
-            - occ_p.view(torch.int16).int()).abs().max().item()
-    check(bool((err <= bound).all()),
-          f"fused loglik off: max err {err.max().item()}")
-    check(ulps <= OCC_ULPS, f"fused occ' off by {ulps} bf16 ulps")
-    out = {"fused_loglik": {"max_abs_err": err.max().item(),
-                            "occ_max_ulps": ulps}}
-    out["fused_loglik"].update(time_pair(
+    fused, occ_k = check_fused(args, "tight level")
+    out = {"fused_loglik": fused}
+    fused.update(time_pair(
         lambda: kernels.fused_loglik_plain(*args),
         lambda: kernels.fused_loglik(*args)))
-    # bytes: only the slabs some pixel's candidate names have to be read
-    # (each once), the map rows in and out, the per-pixel inputs, loglik
-    slabs_read = int(cand_sel.unique().numel())
-    out["fused_loglik"].update(roofline(
-        slabs_read * gt[0].numel() * 4 + 2 * nbytes(occ)
-        + nbytes(*args[2:]) + 4 * p_pad,
-        pcap * p_pad * (FUSED_FLOPS_PER_CANDIDATE * cand_sel.shape[1]
-                        + FUSED_FLOPS_PER_PIXEL)))
-    out["fused_loglik"]["slabs_read"] = slabs_read
-    out["fused_loglik"]["bytes_all_slabs"] = nbytes(gt) + 2 * nbytes(occ)
+    fused.update(fused_bound(args))
+    # cold: copies of the inputs (slabs named + map rows: ~38 MB each)
+    copies = [tuple(a.clone() for a in args) for _ in range(COLD_COPIES)]
+    fused["cold_ms"] = cold_device_ms(
+        [lambda c=c: kernels.fused_loglik(*c) for c in copies])
+    del copies
+    fused_more = fused_other_shapes(dev, sensor, cam, mesh, args, g)
 
     n_pad = fs._round_up(N, sensor.nb)
     q = torch.rand((n_pad, p_pad), generator=g,
@@ -330,12 +457,20 @@ def phase_kernels(dev):
     del q_k, q_p
 
     out["lineage_gather"], lineage = lineage_results(dev, q, g)
-    emit({"phase": "kernels", "shapes": shapes, "n_active": n_active,
-          "n_uniq": n_uniq, "tolerance": {
+    # what device_ms reads for a kernel that does next to nothing: every
+    # time above includes it
+    tiny = torch.zeros((1024,), device=dev)
+    replay_floor = device_ms(lambda: tiny.add_(1.0))
+    emit({"phase": "kernels", "shapes": shapes,
+          "graph_replay_floor_ms": replay_floor,
+          "n_active": info["n_active"], "n_uniq": info["n_uniq"],
+          "tolerance": {
               "loglik": f"|d| <= {LL_RTOL}*|ll| + {LL_ATOL_PER_PIXEL}*n",
-              "occ": f"<= {OCC_ULPS} bf16 ulp", "rows": "bit-exact",
+              "occ": f"<= {OCC_ULPS} bf16 ulp, {OCC_F32_ATOL} in float32",
+              "fused_twice": "bit-identical", "rows": "bit-exact",
               "lineage": "bit-exact"},
-          "results": out, "lineage_parents": lineage})
+          "results": out, "fused_other_shapes": fused_more,
+          "lineage_parents": lineage})
     return out
 
 
@@ -362,6 +497,33 @@ def real_step_parents(dev):
     parents = resample.systematic_indices(log_w, P, generator=gen)
     return parents, {"ess": float(resample.effective_sample_size(log_w)),
                      "kl": float(resample.kl_to_uniform(log_w))}
+
+
+def lineage_read_plan(idx, elem):
+    """What ``lineage_gather.cu`` reads of every row for this ``idx``: per
+    column tile, the 512-byte chunks of the window that some index names
+    (a tile it cannot stage reads one 32-byte sector per element). The
+    host-side mirror of the kernel's plan, for the record only."""
+    vec = 16 // elem
+    p_pad = idx.shape[0]
+    n_vecs = p_pad // vec
+    col_tiles = -(-n_vecs // LINEAGE_TILE_VECS)
+    per_tile = -(-n_vecs // col_tiles)
+    src = idx.clamp(0, p_pad - 1).cpu().numpy().astype(np.int64)
+    staged, row_bytes = 0, 0
+    for t in range(col_tiles):
+        part = src[t * per_tile * vec:min((t + 1) * per_tile, n_vecs) * vec]
+        lo_a = part.min() // vec * vec
+        chunks = np.unique((part - lo_a) * elem // LINEAGE_CHUNK)
+        need = int(sum(min(LINEAGE_CHUNK,
+                           (p_pad - lo_a) * elem - c * LINEAGE_CHUNK)
+                       for c in chunks))
+        fits = (chunks.max() < LINEAGE_MAX_CHUNKS
+                and LINEAGE_RING // need >= 2)
+        staged += fits
+        row_bytes += need if fits else 32 * len(part)
+    return {"column_tiles": col_tiles, "tiles_staged": staged / col_tiles,
+            "row_bytes_read": row_bytes, "row_bytes": p_pad * elem}
 
 
 def lineage_results(dev, q, g):
@@ -397,13 +559,16 @@ def lineage_results(dev, q, g):
         cols_read = int(idx.unique().numel())
         times.update(roofline(cols_read * n_pad * q.element_size()
                            + nbytes(q) + nbytes(idx)))
-        # share of the kernel's column tiles whose source window fits its
-        # shared-memory staging (1024 columns per tile, 2048 staged)
-        tiles = idx.split(1024)
-        fit = sum(int(t.max()) - int(t.min()) // 8 * 8 < 2048
-                  for t in tiles) / len(tiles)
-        times.update({"columns_read": cols_read, "tiles_staged": fit,
-                      "bytes_whole_map": 2 * nbytes(q) + nbytes(idx)})
+        times.update(lineage_read_plan(idx, q.element_size()))
+        if name == "identity":
+            # yardsticks for the same bytes: a device copy of the map (read
+            # and write 97 MB each) and a fill (write only)
+            spare = torch.empty_like(q)
+            times["copy_ms"] = device_ms(lambda: spare.copy_(q))
+            times["fill_ms"] = device_ms(lambda: spare.zero_())
+            del spare
+        times["bytes_whole_map"] = 2 * nbytes(q) + nbytes(idx)
+        times["columns_read"] = cols_read
         per_case[name] = times
         if name == "systematic":
             main = dict(times, max_abs_err=0.0)
@@ -414,6 +579,16 @@ def lineage_results(dev, q, g):
             per_case["systematic_f32_ms"] = device_ms(
                 lambda: kernels.lineage_gather(q32, idx))
             del q32
+            # cold: three maps in turn (each call moves 97 MB in and 97 MB
+            # out, more than the L2 holds, so this should equal the above)
+            maps = [q] + [q.clone() for _ in range(2)]
+            times["cold_ms"] = main["cold_ms"] = cold_device_ms(
+                [lambda m=m: kernels.lineage_gather(m, idx) for m in maps])
+            # the yardstick under the same conditions: a device copy of
+            # each map into a new buffer
+            times["copy_cold_ms"] = cold_device_ms(
+                [lambda m=m: m.clone() for m in maps])
+            del maps
     per_case["real_step"] = stats
     return main, per_case
 
@@ -475,6 +650,11 @@ def make_slice(dev, frames):
 
 
 def phase_slice(dev):
+    # device memory: the peak is counted from here on (the kernels phase
+    # before it holds float32 maps and plain versions' intermediates)
+    torch.cuda.synchronize()
+    peak_earlier = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     tracker, source, traj = make_slice(dev, FRAMES)
     cam, mesh = tracker.camera, tracker.meshes[0]
     per_frame = []
@@ -506,12 +686,22 @@ def phase_slice(dev):
         if i >= WARMUP:
             ms.append(1e3 * (time.perf_counter() - t0))
     med = statistics.median(ms)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step on its own: what it allocates above what is held
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tracker.track(depth)
+    torch.cuda.synchronize()
+    step_extra = torch.cuda.max_memory_allocated() - held
     emit({"phase": "slice", "particles": P, "pixels": cam.num_pixels,
           "triangles": mesh.padded_triangles, "frames": FRAMES,
           "position_rmse_m": rmse, "launches": launches,
           "resampled_frames": run.metrics.resample_count(),
           "track_ms_median": med, "hz": 1e3 / med,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+          "peak_mem_bytes": peak,
+          "peak_mem_bytes_earlier_phases": peak_earlier,
+          "held_mem_bytes": held, "step_extra_mem_bytes": step_extra,
+          "occlusion_map_bytes": nbytes(tracker.belief.occlusion[0])})
     return launches, tracker, depth
 
 
@@ -694,7 +884,8 @@ def main():
          "launches": launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")},
+         "cold_ms": kres[name].get("cold_ms")}
         for name, (src, rep) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

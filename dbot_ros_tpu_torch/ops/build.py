@@ -35,6 +35,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
+    "dbot_fused_loglik_groups": [_I, _I, _I],
     "dbot_fused_loglik_bf16": [_VP] * 10 + [_I] * 4 + [_VP],
     "dbot_fused_loglik_f32": [_VP] * 10 + [_I] * 4 + [_VP],
     "dbot_gather_pixel_rows": [_VP, _VP, _VP, _I, _LL, _VP],

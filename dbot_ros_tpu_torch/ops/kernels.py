@@ -14,6 +14,13 @@ wrapper                CUDA source          replaces (Pallas, TPU)
 ``lineage_gather``     lineage_gather.cu    ``lineage_gather_pallas`` (:430)
 =====================  ===================  =================================
 
+Scratch and outputs are allocated here with ``torch.empty``, never in a
+kernel: ``fused_loglik`` takes one ``(n_groups, p_pad)`` float32 buffer of
+partial sums (``n_groups`` comes from the library, a function of the
+shapes and the card's SM count: 13 rows at 448 pixels and 10,112
+particles on an H100); ``lineage_gather`` takes none beside its output
+(its staging ring is shared memory).
+
 Dispatch: a tensor on the CPU goes to the plain version (``*_plain``); a
 CUDA tensor launches the kernel, or raises on a wrong dtype, shape,
 device or contiguity. There is no fallback from the CUDA path. Each
@@ -31,8 +38,6 @@ _DET_EPS = 1e-12
 _NEAR = 1e-4
 _BIG = 1e30
 _SQRT2PI = 2.5066282746310002
-# the fused kernel sums each particle over at most this many pixel chunks
-_MAX_CHUNKS = 64
 
 
 def _lib():
@@ -148,6 +153,11 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
     On CUDA: ``cand`` must be int32, every float input float32 except
     ``occ`` (bfloat16 or float32), all contiguous and on one device; the
     kernel writes a new ``occ_out`` (the input map is not modified).
+    Scratch: one ``(n_groups, p_pad)`` float32 buffer of partial sums.
+    Each block sums its pixels in a fixed order and a second kernel adds
+    the ``n_groups`` rows in a fixed order (no atomics), so two calls on
+    the same inputs give the same bits; the order differs from the plain
+    version's single sum over pixels.
     """
     if not occ.is_cuda:
         return fused_loglik_plain(slabs, occ, z, cand, rays, ages, params)
@@ -176,17 +186,18 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
     occ_out = torch.empty_like(occ)
     if n == 0:
         return loglik.zero_(), occ_out
-    chunk = max(4, -(-n // _MAX_CHUNKS))
-    n_chunks = -(-n // chunk)
-    partial = torch.empty((n_chunks, p_pad), dtype=torch.float32,
-                          device=dev)
     lib = _lib()
+    n_groups = lib.dbot_fused_loglik_groups(n, K, p_pad)
+    if n_groups <= 0:
+        raise RuntimeError("fused_loglik: cannot read the card's SM count")
+    partial = torch.empty((n_groups, p_pad), dtype=torch.float32,
+                          device=dev)
     entry = (lib.dbot_fused_loglik_bf16 if occ.dtype == torch.bfloat16
              else lib.dbot_fused_loglik_f32)
     err = entry(slabs.data_ptr(), occ.data_ptr(), z.data_ptr(),
                 cand.data_ptr(), rays.data_ptr(), ages.data_ptr(),
                 params.data_ptr(), occ_out.data_ptr(), partial.data_ptr(),
-                loglik.data_ptr(), n, K, p_pad, chunk, _stream(occ))
+                loglik.data_ptr(), n, K, p_pad, n_groups, _stream(occ))
     fused_loglik.launches += 1
     _raise_on(err, "fused_loglik launch")
     return loglik, occ_out
@@ -294,7 +305,8 @@ def lineage_gather(q, idx):
     16-byte rows; ``idx`` is int32 (convert the resampler's int64 parents
     once per call). Out of place: the result is a new buffer the size of
     the map, owned by the caller; ``q`` is only read and is freed when
-    the caller drops the old belief.
+    the caller drops the old belief. No other scratch: the kernel stages
+    rows in shared memory.
     """
     if not q.is_cuda:
         return lineage_gather_plain(q, idx)

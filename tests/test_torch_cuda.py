@@ -89,6 +89,135 @@ def test_fused_loglik_matches_plain(cuda, dtype):
                              pv)
 
 
+FUSED_CASES = ["one_slab", "distinct_slabs", "degenerate_only",
+               "swapped_slots", "k1", "k3", "k5", "ragged_n"]
+
+
+def hard_candidates(case, g, N, T):
+    """``(n_pixels, cand)``: candidate tables the kernel's slab reuse, its
+    skip of degenerate slabs (``T - 1``) and its dealing of pixel runs to
+    blocks could get wrong (the same cases as tests/test_torch_fused.py
+    holds the plain version to the reference on)."""
+    n_px, K = N, 2
+    if case == "one_slab":
+        cand = np.full((N, K), 3)
+    elif case == "distinct_slabs":
+        cand = (np.arange(N)[:, None] * K + np.arange(K)) % (T - 1)
+    elif case == "degenerate_only":
+        cand = np.full((N, K), T - 1)
+    elif case == "swapped_slots":
+        base = g.integers(0, T - 1, (N // 2, K))
+        cand = np.stack([base, base[:, ::-1]], 1).reshape(N, K)
+    elif case == "k1":
+        cand = g.integers(0, T, (N, 1))
+    elif case == "k3":
+        cand = g.integers(0, T, (N, 3))
+        cand[::5, 2] = cand[::5, 0]
+    elif case == "k5":
+        cand = g.integers(0, T, (N, 5))
+    elif case == "ragged_n":
+        n_px = 1000
+        cand = g.integers(0, T, (n_px, K))
+    else:
+        raise ValueError(case)
+    return n_px, cand.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loglik_hard_candidates(cuda, dtype, case):
+    """Kernel vs plain on hand-made candidate tables, with 1000 particles
+    (24 idle lanes in the last block); two runs give the same bits."""
+    cam, m, states, z = small_scene(cuda)
+    P = states.shape[0]
+    p_pad = fs.particle_pad(P)
+    gt = fs.pack_constants(m, states[:, 0, :7], p_pad)
+    rng = np.random.default_rng(4)
+    n_px, cand = hard_candidates(case, rng, cam.num_pixels,
+                                 m.padded_triangles)
+    cand = torch.as_tensor(cand, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    occ = torch.rand((n_px, p_pad), generator=g, device=cuda).to(dtype)
+    ages = torch.randint(0, 5, (n_px,), generator=g, device=cuda).float()
+    pv = fs.make_params_vec(beam.make_beam_params(device=cuda),
+                            occlusion.make_occlusion_params(device=cuda),
+                            1.0, 0.25)
+    args = (gt, occ, z[:n_px].contiguous(), cand,
+            cam.rays[:n_px].contiguous(), ages, pv)
+    ll_k, occ_k = kernels.fused_loglik(*args)
+    ll_p, occ_p = kernels.fused_loglik_plain(*args)
+    torch.testing.assert_close(ll_k, ll_p, rtol=1e-5, atol=1e-4 * n_px)
+    torch.testing.assert_close(
+        occ_k.float(), occ_p.float(), rtol=0,
+        atol=1e-6 if dtype == torch.float32 else 4e-3)
+    ll_2, occ_2 = kernels.fused_loglik(*args)
+    assert torch.equal(ll_2, ll_k) and torch.equal(occ_2, occ_k)
+
+
+def test_fused_loglik_ragged_particle_axis(cuda):
+    """A particle axis that is no multiple of the kernel's 128-particle
+    tile (1000 columns: 24 idle lanes that still vote) and a pixel count
+    that is no multiple of its 4-pixel sub-run."""
+    cam, m, states, z = small_scene(cuda)
+    P = states.shape[0]
+    gt = fs.pack_constants(m, states[:, 0, :7], P)
+    assert gt.shape[2] == 1000
+    n_px = 1198
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cand = torch.randint(0, m.padded_triangles, (n_px, 2), generator=g,
+                         device=cuda, dtype=torch.int32)
+    cand[600:] = m.padded_triangles - 1          # a tail of misses
+    occ = torch.rand((n_px, P), generator=g, device=cuda).to(torch.bfloat16)
+    ages = torch.randint(0, 5, (n_px,), generator=g, device=cuda).float()
+    pv = fs.make_params_vec(beam.make_beam_params(device=cuda),
+                            occlusion.make_occlusion_params(device=cuda),
+                            1.0, 0.25)
+    args = (gt, occ, z[:n_px].contiguous(), cand,
+            cam.rays[:n_px].contiguous(), ages, pv)
+    ll_k, occ_k = kernels.fused_loglik(*args)
+    ll_p, occ_p = kernels.fused_loglik_plain(*args)
+    torch.testing.assert_close(ll_k, ll_p, rtol=1e-5, atol=1e-4 * n_px)
+    torch.testing.assert_close(occ_k.float(), occ_p.float(), rtol=0,
+                               atol=4e-3)
+
+
+def lineage_parents(kind, P, g, dev):
+    if kind == "sorted":
+        return torch.sort(torch.randint(0, P, (P,), generator=g,
+                                        device=dev)).values
+    if kind == "unsorted":           # sorted, every pair swapped
+        return lineage_parents("sorted", P, g, dev).view(-1, 2).flip(
+            1).reshape(-1)
+    if kind == "one_parent":
+        return torch.full((P,), (2 * P) // 5, device=dev)
+    if kind == "scattered":
+        return torch.randperm(P, generator=g, device=dev)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "one_parent",
+                                  "scattered"])
+@pytest.mark.parametrize("dtype,rows,P,p_pad", [
+    (torch.bfloat16, 333, 12288, 12288),   # exactly one full column tile
+    (torch.bfloat16, 130, 12288, 12416),   # two tiles, padding in the 2nd
+    (torch.bfloat16, 64, 40, 128),         # far smaller than one tile
+    (torch.float32, 97, 10000, 10112),     # two tiles; scattered parents
+                                           # need the whole 40 KB row
+    (torch.bfloat16, 24, 300000, 300032),  # scattered: wider than can be
+                                           # staged, read from global
+], ids=["tile_multiple", "two_tiles", "below_one_tile", "f32", "huge"])
+def test_lineage_gather_tile_edges(cuda, dtype, rows, P, p_pad, kind):
+    """Kernel vs plain, bit-exact, at the edges of its column tiling and
+    staging, with identity padding columns behind the parents."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.rand((rows, p_pad), generator=g, device=cuda).to(dtype)
+    idx = torch.cat([lineage_parents(kind, P, g, cuda),
+                     torch.arange(P, p_pad, device=cuda)]).to(torch.int32)
+    out = kernels.lineage_gather(q, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.lineage_gather_plain(q, idx))
+
+
 def test_pixel_rows_match_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.rand((1216, 384), generator=g, device=cuda).to(torch.bfloat16)

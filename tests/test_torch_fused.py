@@ -179,6 +179,80 @@ def test_fused_loglik_plain_matches_pallas(hw, dtype):
                                (n_pad - N) * LOG_P_INVALID_BG, atol=2e-3)
 
 
+def hard_candidates(case, g, N, T):
+    """``(n_pixels, cand)`` for the inputs a kernel that reuses slabs
+    between pixels, skips degenerate slabs and deals pixels to blocks in
+    runs could get wrong. ``T - 1`` is the degenerate slab."""
+    n_px, K = N, 2
+    if case == "one_slab":           # every pixel, both slots: triangle 3
+        cand = np.full((N, K), 3)
+    elif case == "distinct_slabs":   # no pixel shares a slab with a neighbour
+        cand = (np.arange(N)[:, None] * K + np.arange(K)) % (T - 1)
+    elif case == "degenerate_only":
+        cand = np.full((N, K), T - 1)
+    elif case == "swapped_slots":    # a pixel's slabs in the other order next
+        base = g.integers(0, T - 1, (N // 2, K))
+        cand = np.stack([base, base[:, ::-1]], 1).reshape(N, K)
+    elif case == "k1":
+        cand = g.integers(0, T, (N, 1))
+    elif case == "k3":
+        cand = g.integers(0, T, (N, 3))
+        cand[::5, 2] = cand[::5, 0]  # a repeated triangle within a pixel
+    elif case == "k5":
+        cand = g.integers(0, T, (N, 5))
+    elif case == "ragged_n":         # 1000 pixels: 15 runs of 64 and 40 more
+        n_px = 1000
+        cand = g.integers(0, T, (n_px, K))
+    else:
+        raise ValueError(case)
+    return n_px, cand.astype(np.int32)
+
+
+HARD_CASES = ["one_slab", "distinct_slabs", "degenerate_only",
+              "swapped_slots", "k1", "k3", "k5", "ragged_n"]
+
+
+@pytest.mark.parametrize("case", HARD_CASES)
+def test_fused_loglik_plain_matches_pallas_on_hard_candidates(case):
+    """The plain fused kernel vs ``fused_loglik_packed`` (interpret) on
+    hand-made candidate tables (see ``hard_candidates``), bfloat16 map,
+    lazy ages, NaN and out-of-range depths."""
+    jdt, tdt = DTYPES["bf16"]
+    hw = (32, 32)
+    s = scene(hw)
+    g = np.random.default_rng(7)
+    P = 96
+    T = s.jm.padded_triangles
+    N, cand = hard_candidates(case, g, hw[0] * hw[1], T)
+    n_pad = -(-N // 64) * 64
+    poses = perturbed_poses(g, P, (0.0, 0.0, 0.6))
+    z = observed_depth(g, s.jm, s.jcam, (0.0, 0.0, 0.6))[:N]
+    occ0 = (0.4 * g.uniform(size=(P, n_pad))).astype(np.float32)
+    ages = g.integers(0, 5, N).astype(np.float32)
+    pv = jrp.make_params_vec(s.jbp, s.jop, jnp.float32(1.0), 0.2)
+    jgt = jrp.pack_constants(s.jm, jnp.asarray(poses),
+                             interop.jax_particle_pads(P)[0])
+
+    ll_j, occ_j = jrp.fused_loglik_packed(
+        jgt, jrp.occ_to_kernel(jnp.asarray(occ0)).astype(jdt),
+        jnp.asarray(z), jnp.asarray(cand), s.jcam.rays[:N], pv, P,
+        interpret=True, ages=jnp.asarray(ages))
+    gt = jax_slabs_to_port(jgt, P)
+    occ_m = fs.occ_to_map(t(occ0)).to(tdt)
+    ll_p, occ_p = fs.fused_loglik_packed(
+        gt, occ_m, t(z), torch.tensor(cand), s.pcam.rays[:N], t(pv), P,
+        ages=t(ages))
+    assert occ_p.dtype == tdt and occ_p.shape == (n_pad, fs.particle_pad(P))
+    np.testing.assert_allclose(n(ll_p), np.asarray(ll_j), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(
+        n(fs.occ_from_map(occ_p, n_pad, P)),
+        np.asarray(jrp.occ_from_kernel(occ_j, n_pad, P), np.float32),
+        atol=4e-3)
+    if case == "degenerate_only":    # no hit: every particle sums the
+        assert np.ptp(n(ll_p)) == 0  # same background terms
+
+
 def test_pixel_rows_match_pallas():
     """Row gather (duplicates allowed) and the in-place row scatter on the
     port's map vs the Pallas kernels (interpret) on the JAX layout."""

@@ -47,7 +47,7 @@ def fields(x):
             for f in dataclasses.fields(x)}
 
 
-def parents(kind):
+def parents(kind, P=P):
     """Parent vectors of P entries, from a seed."""
     g = np.random.default_rng(11)
     if kind == "sorted":        # systematic parents of random weights
@@ -56,9 +56,11 @@ def parents(kind):
         return np.minimum(np.searchsorted(cdf, (np.arange(P) + 0.37) / P),
                           P - 1).astype(np.int32)
     if kind == "one_parent":
-        return np.full(P, 141, np.int32)
+        return np.full(P, (141 * P) // 200, np.int32)
     if kind == "identity":
         return np.arange(P, dtype=np.int32)
+    if kind == "unsorted":      # sorted parents with every pair swapped
+        return parents("sorted", P).reshape(-1, 2)[:, ::-1].reshape(-1)
     return g.permutation(P).astype(np.int32)      # scattered
 
 
@@ -110,6 +112,44 @@ def test_gather_occlusion_matches_jax(dtype, mode, kind):
     assert torch.equal(pocc_leaf[0], before)
     assert got[0].data_ptr() != pocc_leaf[0].data_ptr()
     assert got[1] is pocc_leaf[1]
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "one_parent"])
+@pytest.mark.parametrize("num", [256, 40], ids=["tile_multiple",
+                                                "below_one_tile"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gather_occlusion_matches_jax_at_tile_edges(dtype, num, kind):
+    """The shapes a column-tiled kernel could get wrong: P a multiple of
+    the 128-column tile (no padding column behind the parents), P smaller
+    than one tile (88 padding columns beside 40 parents), with unsorted
+    parents and with one parent for all."""
+    js, ps = sensors(dtype, "pallas")
+    N = HW[0] * HW[1]
+    _, pdt = DTYPES[dtype]
+    jdt = DTYPES[dtype][0]
+    g = np.random.default_rng(6)
+    occ_pn = g.uniform(size=(num, N)).astype(np.float32)
+    age = np.zeros(320, np.float32)
+    jocc_leaf = (jrp.occ_to_kernel(jnp.asarray(occ_pn)).astype(jdt),
+                 jnp.asarray(age))
+    pocc_leaf = interop.occlusion_from_jax(occ_pn, num, N, age=age,
+                                           occ_dtype=pdt)
+    par = parents(kind, num)
+    if kind == "unsorted":
+        assert (np.diff(par) < 0).any()
+
+    want = js.gather_occlusion(jocc_leaf, jnp.asarray(par))
+    before = pocc_leaf[0].clone()
+    got = ps.gather_occlusion(pocc_leaf, torch.as_tensor(par).long())
+
+    assert got[0].shape == (320, fs.particle_pad(num))
+    np.testing.assert_array_equal(
+        ps.occlusion_as_pn(got, num).numpy(),
+        np.asarray(js.occlusion_as_pn(want, num)))
+    assert torch.equal(got[0][:, :num],
+                       before[:, torch.as_tensor(par).long()])
+    assert torch.equal(got[0][:, num:], before[:, num:])
+    assert torch.equal(pocc_leaf[0], before)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
