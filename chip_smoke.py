@@ -48,7 +48,40 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    island hypotheses, the position error of the last 10 frames (under
    1 cm), the checkpoint (load, restore, one more frame) and that all
    four kernels launched. Prints the seconds of the search and of the
-   re-init, and the per-frame latency inside and outside the trial.
+   re-init, and the per-frame latency inside and outside the trial;
+8. rgf: the second estimator at the same width: ``GaussianTracker``
+   (default config: 3 iterations, occlusion memory, the candidate-set
+   sigma renderer, every pixel) over the slice's 60 frames through
+   ``runtime.node.run``, position RMSE under 1 cm. The first 3 frames on
+   the card against the same on the CPU (pose 1e-4 m / 1e-3 rad); the
+   sigma renderer on the 25 sigma poses of frame 0, card against CPU
+   (hit masks equal on all but 0.2 % of pixels, depths 1e-5) and, with
+   the exact inside-test, against the exact raycast of every triangle
+   (no invented hit, the reference pose covered, under 1 % of common
+   depths off by more than 1e-4, at least 45 % of the exact hits
+   covered by the candidate sets of that wide cloud; on a tracked
+   frame's cloud the tracker's own renderer covers at least 80 %).
+   Prints ``track`` median and p90 ms, and from ``torch.profiler`` the
+   device busy ms, kernels, copies to the host and host-side waits per
+   step, the idle share and the largest kernels (table in
+   ``build/profile_rgf_step.txt``), the peak memory from the tracker's
+   start; the same readings for the 6-iteration, ``trust_sigma=1.5``
+   configuration, the two timed in turns (3, 6, 6, 3 iterations) before
+   either is profiled; the one-hot product against the gather at 25
+   poses and at the particle chunk; the batched step over 4 scenes;
+9. rgf_cli: ``record --trajectory teleport`` then ``track --auto-init
+   --watchdog --checkpoint`` with a Gaussian config: the watchdog trips
+   after the jump at frame 12, the re-init races at least two
+   hypotheses, the last 10 frames are within 1 cm, the checkpoint
+   restores and tracks;
+10. deferred: ``ParticleTracker(backend="deferred")``, 10,000 particles,
+   20 frames, RMSE under 1 cm; the particle chunk the memory budget
+   chose, peak memory, and 512 particles' depths against the exact
+   raycast (share of (particle, pixel) pairs that differ).
+
+The kernels phase also times the two row kernels cold. None of the three
+new paths launches a hand-written kernel (the reference's are plain
+array code too): their launch counts are printed and are zero.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -68,11 +101,13 @@ import numpy as np
 import torch
 
 from dbot_ros_tpu_torch import config as cfg
+from dbot_ros_tpu_torch.filters import rgf
 from dbot_ros_tpu_torch.models import beam, occlusion, transition
-from dbot_ros_tpu_torch.ops import build, kernels, raycast
+from dbot_ros_tpu_torch.ops import build, deferred, kernels, raycast
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
 from dbot_ros_tpu_torch.ops import resample
 from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
+from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.camera import default_kinect_camera, make_camera
@@ -100,7 +135,10 @@ COLD_COPIES = 4
 # column tile, 512-byte chunks, at most 256 of them, a 96 KB ring)
 LINEAGE_TILE_VECS, LINEAGE_CHUNK = 480 * 3, 512
 LINEAGE_MAX_CHUNKS, LINEAGE_RING = 256, 96 * 1024
-PROFILE_TABLE = Path(__file__).resolve().parent / "build" / "profile_step.txt"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+PROFILE_TABLE = BUILD_DIR / "profile_step.txt"
+RGF_PROFILE_TABLE = BUILD_DIR / "profile_rgf_step.txt"
+RGF6_PROFILE_TABLE = BUILD_DIR / "profile_rgf6_step.txt"
 # published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside
 # the tensor cores (none of the four kernels uses them)
 PEAK_BYTES_PER_S = 3.35e12
@@ -113,6 +151,18 @@ FUSED_FLOPS_PER_CANDIDATE = 31
 FUSED_FLOPS_PER_PIXEL = 50
 CLI_FRAMES = 60
 CLI_POS_LIMIT_M = 0.01
+# Gaussian tracker on the card against the CPU, first frames
+RGF_POS_ATOL_M, RGF_ROT_ATOL_RAD = 1e-4, 1e-3
+# two renders of the same poses: share of pixels whose hit/miss may
+# differ, depth tolerance on the rest
+RENDER_FLIP_SHARE, RENDER_DEPTH_ATOL = 0.002, 1e-5
+# least share of the exact raycast's hits that the sigma renderer's
+# candidate sets cover on this scene: on frame 0's cloud (7.8 cm wide)
+# with the exact inside-test, and on a tracked frame's (8 mm) with the
+# tracker's own renderer (0.525 and 0.88 when these were set)
+COVERAGE_FRAME0, COVERAGE_STEADY = 0.45, 0.80
+DEFERRED_FRAMES = 20
+BATCHED_SCENES = 4
 
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
@@ -441,6 +491,10 @@ def phase_kernels(dev):
         library=lambda: q.index_select(0, sel64)))
     out["gather_pixel_rows"].update(roofline(2 * nbytes(rows_k)
                                           + nbytes(sel32)))
+    # cold: copies of the map (97 MB each) taken in turns
+    maps = [q.clone() for _ in range(COLD_COPIES)]
+    out["gather_pixel_rows"]["cold_ms"] = cold_device_ms(
+        [lambda m=m: kernels.gather_pixel_rows(m, sel32) for m in maps])
 
     vals = occ_k
     q_k, q_p = q.clone(), q.clone()
@@ -454,7 +508,11 @@ def phase_kernels(dev):
         library=lambda: q_p.index_copy_(0, sel64, vals)))
     out["scatter_pixel_rows"].update(roofline(2 * nbytes(vals)
                                            + nbytes(sel32)))
-    del q_k, q_p
+    rows = [vals.clone() for _ in range(COLD_COPIES)]
+    out["scatter_pixel_rows"]["cold_ms"] = cold_device_ms(
+        [lambda m=m, r=r: kernels.scatter_pixel_rows(m, r, sel32)
+         for m, r in zip(maps, rows)])
+    del q_k, q_p, maps, rows
 
     out["lineage_gather"], lineage = lineage_results(dev, q, g)
     # what device_ms reads for a kernel that does next to nothing: every
@@ -632,18 +690,24 @@ def slice_config():
         transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
 
 
-def make_slice(dev, frames):
-    """The slice's tracker, its synthetic source and trajectory."""
+def slice_scene():
+    """The slice's camera, mesh and trajectory (host-side)."""
     cam = default_kinect_camera(8)
     mesh = icosphere_mesh(radius=0.06, subdivisions=3)
-    tracker = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
-                              device=dev)
 
     def traj(t):
         a = 2 * np.pi * t / FRAMES
         return np.array([[0.01 * np.sin(a), 0.005 * (1 - np.cos(a)),
                           0.8 + 0.005 * np.sin(a), 1, 0, 0, 0]], np.float32)
 
+    return cam, mesh, traj
+
+
+def make_slice(dev, frames):
+    """The slice's tracker, its synthetic source and trajectory."""
+    cam, mesh, traj = slice_scene()
+    tracker = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
+                              device=dev)
     source = sources.SyntheticSource([mesh], tracker.camera, traj, frames,
                                      seed=SEED)
     return tracker, source, traj
@@ -705,10 +769,12 @@ def phase_slice(dev):
     return launches, tracker, depth
 
 
-def phase_profile(tracker, depth, table_path, steps=10):
+def profile_steps(tracker, depth, table_path, steps=10):
     """torch.profiler over ``steps`` track calls: device busy time per
-    step, the idle share of the wall time, and the device time by kernel
-    (the full table is written to ``table_path``)."""
+    step, the idle share of the wall time, the device time by kernel (the
+    full table is written to ``table_path``), and what makes the host
+    wait for the card: copies to the host (a value read back) and
+    stream or device synchronisations (the final one not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -728,6 +794,10 @@ def phase_profile(tracker, depth, table_path, steps=10):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    def count(*parts):
+        return sum(e.count for e in events
+                   if any(part in e.key for part in parts)) / steps
+
     # device-side rows only: an operator's row repeats its kernels' time
     kernels_ = [e for e in events
                 if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -736,14 +806,28 @@ def phase_profile(tracker, depth, table_path, steps=10):
     table_path.parent.mkdir(parents=True, exist_ok=True)
     table_path.write_text(events.table(sort_by="self_cuda_time_total",
                                        row_limit=80))
-    emit({"phase": "profile", "steps": steps,
-          "wall_ms_per_step_profiled": wall_ms,
-          "device_busy_ms_per_step": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_kernels_per_step": sum(e.count for e in kernels_) / steps,
-          "top_device_us_per_step": [
-              [e.key[:80], dev_us(e) / steps] for e in top],
-          "table": str(table_path)})
+    host_ops = [e for e in events
+                if getattr(e, "device_type", None) == DeviceType.CPU
+                and e.key.startswith("aten::")]
+    return {"steps": steps,
+            "wall_ms_per_step_profiled": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_kernels_per_step": sum(e.count for e in kernels_) / steps,
+            "host_ops_per_step": sum(e.count for e in host_ops) / steps,
+            "host_reads_per_step": count("Memcpy DtoH"),
+            "copies_from_host_per_step": count("Memcpy HtoD"),
+            "host_waits_per_step": count("cudaStreamSynchronize",
+                                         "cudaDeviceSynchronize",
+                                         "cudaEventSynchronize")
+            - 1.0 / steps,
+            "top_device_us_per_step": [
+                [e.key[:80], dev_us(e) / steps] for e in top],
+            "table": str(table_path)}
+
+
+def phase_profile(tracker, depth, table_path):
+    emit({"phase": "profile", **profile_steps(tracker, depth, table_path)})
 
 
 def write_icosphere_obj(path):
@@ -776,21 +860,25 @@ def tagged_json(lines, tag):
     return json.loads(found[0].split(": ", 1)[1])
 
 
-def phase_cli(dev):
+def phase_cli(dev, kind="particle"):
     """record → track --auto-init --watchdog --checkpoint through the
-    command line, at the slice's width (see the module docstring)."""
+    command line, at the slice's width (see the module docstring), with a
+    particle-tracker config (phase ``cli``) or a Gaussian one
+    (``rgf_cli``)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_icosphere_obj(tmp / "icosphere.obj")
         conf = {
-            "tracker": "particle",
+            "tracker": kind,
             "object": {"meshes": [str(tmp / "icosphere.obj")]},
             "camera": {"downsampling_factor": 8},
             "transition": {"linear_acceleration_sigma": 0.1,
                            "angular_acceleration_sigma": 0.5,
                            "damping": 4.0},
-            "evaluation_count": P, "backend": "pallas", "seed": SEED,
+            "seed": SEED,
         }
+        if kind == "particle":
+            conf.update(evaluation_count=P, backend="pallas")
         (tmp / "tracker.json").write_text(json.dumps(conf))
         common = ["--config", str(tmp / "tracker.json"), "--device",
                   str(dev)]
@@ -813,7 +901,8 @@ def phase_cli(dev):
                          "--metrics", met])
         seconds = time.perf_counter() - t0
         launches = {k: w.launches for k, w in WRAPPERS.items()}
-        check(all(v > 0 for v in launches.values()),
+        # the Gaussian path has no hand-written kernel to launch
+        check(all(v > 0 for v in launches.values()) or kind == "gaussian",
               f"a kernel was not launched by track: {launches}")
 
         init = tagged_json(lines, "auto-init")
@@ -823,7 +912,8 @@ def phase_cli(dev):
               f"auto-init is {init_err} m from the truth")
         summary = tagged_json(lines, "track")
         reinits = summary.get("watchdog_reinits", [])
-        check(reinits, "the watchdog never tripped")
+        check(reinits and reinits[0] > 12,
+              f"the watchdog did not trip after the jump: {reinits}")
 
         records = [json.loads(ln) for ln in Path(out).read_text().splitlines()]
         check(len(records) == CLI_FRAMES, f"{len(records)} JSONL records")
@@ -838,22 +928,28 @@ def phase_cli(dev):
         after = [m["trial_hypotheses"] for m in trial
                  if m["frame"] > reinits[0]]
         check(after and min(after) >= 2,
-              "no island trial of >= 2 hypotheses after the re-init")
+              "no trial of >= 2 hypotheses after the re-init")
         plain = [m["latency_s"] for m in metrics[2:]
                  if not m["trial_hypotheses"]]
 
         gen = torch.Generator(device=dev)
         belief = checkpoint.load_belief(ckpt, device=dev, generator=gen)
-        tracker = ParticleTracker(cfg.load_config(str(tmp / "tracker.json")),
-                                  device=dev)
+        loaded = cfg.load_config(str(tmp / "tracker.json"))
+        if kind == "particle":
+            tracker = ParticleTracker(loaded, device=dev)
+            tracker.generator = gen
+        else:
+            tracker = GaussianTracker(loaded, device=dev)
         tracker.restore(belief)
-        tracker.generator = gen
         poses, _ = tracker.track(data["depth"][-1])
+        poses = poses.reshape(-1, 7)
         check(bool(torch.isfinite(poses).all()) and float(torch.linalg.norm(
             poses[0, :3].cpu() - torch.as_tensor(truth[-1, 0, :3])))
             < CLI_POS_LIMIT_M, "restored checkpoint does not track")
 
-    emit({"phase": "cli", "particles": P, "frames": CLI_FRAMES,
+    emit({"phase": "cli" if kind == "particle" else "rgf_cli",
+          "tracker": kind, "particles": P if kind == "particle" else None,
+          "frames": CLI_FRAMES,
           "track_command_seconds": seconds,
           "auto_init_seconds": init["seconds"],
           "auto_init_error_m": init_err,
@@ -869,6 +965,326 @@ def phase_cli(dev):
           "launches": launches})
 
 
+def rgf_config(**overrides):
+    """The Gaussian tracker's default configuration (3 iterations,
+    occlusion memory, candidate-set sigma renderer, every pixel) with the
+    slice's transition."""
+    return cfg.GaussianTrackerConfig(
+        seed=SEED, transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0),
+        **overrides)
+
+
+def track_ms(tracker, depth, runs=TIMING_RUNS):
+    """Synchronised ms of ``runs`` track calls after warm-up."""
+    ms = []
+    for i in range(WARMUP + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker.track(depth)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    ms.sort()
+    return {"track_ms_median": statistics.median(ms),
+            "track_ms_p90": ms[int(0.9 * (len(ms) - 1))],
+            "track_ms_min": ms[0], "track_ms_max": ms[-1]}
+
+
+def compare_renders(got, want, what):
+    """Two renders of the same poses by the same route: hit masks equal
+    on all but RENDER_FLIP_SHARE of the pixels, depths equal on the rest."""
+    got, want = got.cpu(), want.cpu()
+    flips = (torch.isfinite(got) != torch.isfinite(want)).float().mean()
+    both = torch.isfinite(got) & torch.isfinite(want)
+    err = (got[both] - want[both]).abs().max().item()
+    check(float(flips) <= RENDER_FLIP_SHARE,
+          f"{what}: {float(flips):.4f} of the pixels flip")
+    check(err <= RENDER_DEPTH_ATOL, f"{what}: depths differ by {err}")
+    return {"flip_share": float(flips), "max_abs_err": err,
+            "hits": int(both.sum())}
+
+
+def rgf_against_cpu(dev, cam, mesh, traj):
+    """The first three frames on the card against the same on the CPU,
+    and the sigma renderer on frame 0's first 25 sigma poses: card
+    against CPU, and (exact inside-test) against the exact raycast."""
+    frames = list(sources.SyntheticSource([mesh], cam, traj, 3, seed=SEED))
+    trackers = {d: GaussianTracker(rgf_config(), meshes=[mesh], camera=cam,
+                                   device=d) for d in ("cpu", dev)}
+    seen = []
+    card = trackers[dev]
+    render = card.render_fn
+    card.render_fn = lambda poses: (seen.append(poses), render(poses))[1]
+    pos_err = rot_err = 0.0
+    for t_ in trackers.values():
+        t_.initialize(traj(0), first_frame=frames[0].depth)
+    for frame in frames:
+        pc, _ = trackers["cpu"].track(frame.depth)
+        pg, _ = card.track(frame.depth)
+        pg = pg.cpu()
+        pos_err = max(pos_err, float(torch.linalg.norm(pg[:3] - pc[:3])))
+        rot_err = max(rot_err, float(torch.linalg.norm(
+            se3.quat_boxminus(pg[3:7], pc[3:7]))))
+    check(pos_err <= RGF_POS_ATOL_M and rot_err <= RGF_ROT_ATOL_RAD,
+          f"card vs cpu: {pos_err} m, {rot_err} rad")
+    poses = seen[0]
+    check(poses.shape == (25, 7), f"sigma poses {tuple(poses.shape)}")
+    out = {"frames": 3, "max_pos_err_m": pos_err, "max_rot_err_rad": rot_err,
+           "sigma_renderer_card_vs_cpu": compare_renders(
+               render(poses), trackers["cpu"].render_fn(poses.cpu()),
+               "sigma renderer card vs cpu")}
+    # against the exact raycast, with the reference's own bounds
+    c, m = card.camera, card.meshes[0]
+    conf = card.config
+    tight = deferred.make_sigma_renderer(
+        [m], c.rays, c.height, c.width, radius=conf.sigma_radius,
+        num_candidates=conf.sigma_candidates, bary_slack=0.0)
+    d_def, d_ex = tight(poses), raycast.raycast_depth(m, poses, c.rays)
+    hit_def, hit_ex = torch.isfinite(d_def), torch.isfinite(d_ex)
+    both = hit_def & hit_ex
+    diff = d_def[both] - d_ex[both]
+    off = int((diff.abs() > 1e-4).sum())
+    invented = int((hit_def & ~hit_ex).sum())
+    missed = int((hit_ex & ~hit_def).sum())
+    check(invented == 0, f"{invented} hits the exact render lacks")
+    check(off <= 0.01 * int(both.sum()) and float(diff.min()) > -1e-4,
+          f"{off} common depths off, nearest {float(diff.min())}")
+    check(not bool((hit_ex[0] & ~hit_def[0]).any()),
+          "the reference pose itself is not covered")
+    # This icosphere's faces are smaller than a pixel, and a face that
+    # covers no pixel centre at the reference pose is in no candidate set
+    # (the candidate pass's limit, and the reference's too: its renderer
+    # gives these hit masks, tests/test_torch_deferred.py), so the
+    # coverage is held from below, under what this wide cloud gives.
+    coverage = 1.0 - missed / max(int(hit_ex.sum()), 1)
+    check(coverage >= COVERAGE_FRAME0,
+          f"{missed} of {int(hit_ex.sum())} exact hits missed on frame 0")
+    out["sigma_renderer_vs_exact"] = {
+        "exact_hits": int(hit_ex.sum()), "missed": missed,
+        "coverage_share": coverage,
+        "invented": invented, "depths_off_1e-4": off,
+        "cloud_spread_m": float(torch.linalg.norm(
+            poses[:, :3] - poses[0, :3], dim=1).max())}
+    return out
+
+
+def steady_coverage(tracker, depth):
+    """The share of the exact raycast's hits that the tracker's own sigma
+    renderer covers on the first sigma cloud of one more tracked frame."""
+    seen = []
+    render = tracker.render_fn
+    tracker.render_fn = lambda poses: (seen.append(poses), render(poses))[1]
+    tracker.track(depth)
+    tracker.render_fn = render
+    poses = seen[0]
+    m, c = tracker.meshes[0], tracker.camera
+    hit = torch.isfinite(render(poses))
+    hit_ex = torch.isfinite(raycast.raycast_depth(m, poses, c.rays))
+    coverage = float((hit & hit_ex).sum()) / float(hit_ex.sum())
+    check(coverage >= COVERAGE_STEADY,
+          f"the sigma renderer covers {coverage} of the exact hits")
+    return {"coverage_share": coverage, "exact_hits": int(hit_ex.sum()),
+            "hits_the_exact_render_lacks": int((hit & ~hit_ex).sum()),
+            "cloud_spread_m": float(torch.linalg.norm(
+                poses[:, :3] - poses[0, :3], dim=1).max())}
+
+
+def select_times(dev, cam, mesh, traj, counts):
+    """The one-hot product against the gather (ops/deferred.py) for each
+    (poses, candidates) of ``counts``: device ms by graph replay and ms
+    per call from Python, and that both give the same depths."""
+    m, c = mesh.to(dev), cam.to(dev)
+    g = np.random.default_rng(SEED)
+    out = {}
+    for num, k in counts:
+        poses = np.tile(traj(0)[0], (num, 1))
+        poses[1:, :3] += 0.003 * g.standard_normal((num - 1, 3))
+        poses = torch.as_tensor(poses.astype(np.float32), device=dev)
+        _, ids = deferred.raycast_ids(m, poses[0], c.rays)
+        cand = deferred.candidate_ids_dynamic(ids, c.height, c.width, 3.0, k,
+                                              m.padded_triangles)
+
+        def gather():
+            return deferred.deferred_depth_gather(m, poses, c.rays, cand,
+                                                  0.1)
+
+        def matmul():
+            return deferred.deferred_depth(
+                m, poses, c.rays,
+                deferred.one_hot_selectors(cand, m.padded_triangles), 0.1)
+
+        a, b = gather(), matmul()
+        check(torch.equal(torch.isfinite(a), torch.isfinite(b))
+              and float(torch.nan_to_num(a - b, posinf=0.0).abs().max())
+              <= RENDER_DEPTH_ATOL, f"gather and matmul differ at {num}")
+        del a, b
+        res = {}
+        for name, fn in (("gather", gather), ("matmul", matmul)):
+            res[name + "_ms"] = device_ms(fn, warmup=2, replays=3, runs=5)
+            res[name + "_call_ms"] = statistics.median(
+                _events_ms(fn, 1) for _ in range(5))
+        out[f"poses_{num}_candidates_{k}"] = res
+    return out
+
+
+def batched_step_ms(dev, cam, mesh, traj):
+    """``rgf.make_batched_step`` over BATCHED_SCENES stacked scenes: ms per
+    step, and that scene 0 equals the single step."""
+    tracker = GaussianTracker(rgf_config(), meshes=[mesh], camera=cam,
+                              device=dev)
+    frames = list(sources.SyntheticSource([mesh], cam, traj, 2, seed=SEED))
+    tracker.initialize(traj(0), first_frame=frames[0].depth)
+    z = tracker._frame(frames[1].depth)
+    conf = tracker.config
+    step = rgf.make_batched_step(
+        tracker.render_fn, tracker.trans_params, tracker._dt,
+        tracker.beam_params, iterations=conf.update_iterations,
+        trust_sigma=conf.trust_sigma, occ_params=tracker._occ_params)
+    beliefs = rgf.stack_beliefs([tracker.belief] * BATCHED_SCENES)
+    zs = torch.stack([z] * BATCHED_SCENES)
+    nb, _ = step(beliefs, zs)
+    single, _ = tracker._step(tracker.belief, z, tracker._dt)
+    err = float((nb.mean[0] - single.mean).abs().max())
+    check(err <= 1e-5, f"batched step differs from the single step: {err}")
+    ms = []
+    for i in range(WARMUP + 10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(beliefs, zs)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    med = statistics.median(ms)
+    return {"scenes": BATCHED_SCENES, "ms_per_step": med,
+            "ms_per_scene": med / BATCHED_SCENES,
+            "max_abs_err_vs_single": err}
+
+
+def phase_rgf(dev):
+    """The Gaussian tracker at the slice's width (see the module
+    docstring)."""
+    cam, mesh, traj = slice_scene()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    # the default configuration and the 6-iteration one: the same frames
+    # and readings
+    configs = {"three": rgf_config(),
+               "six": rgf_config(update_iterations=6, trust_sigma=1.5)}
+    trackers, res = {}, {}
+    for name, conf in configs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        tracker = GaussianTracker(conf, meshes=[mesh], camera=cam,
+                                  device=dev)
+        run = node.run(tracker, sources.SyntheticSource(
+            [mesh], tracker.camera, traj, FRAMES, seed=SEED))
+        check(np.all(np.isfinite(run.poses)) and run.poses.shape == (
+            FRAMES, 1, 7), f"{name}: bad pose output")
+        rmse = run.position_rmse()
+        check(rmse < RMSE_LIMIT_M,
+              f"{name}: position RMSE {rmse} m >= {RMSE_LIMIT_M}")
+        torch.cuda.synchronize()
+        trackers[name] = tracker
+        res[name] = {
+            "position_rmse_m": rmse, "rotation_rmse_rad": run.rotation_rmse(),
+            "node_latency_ms_mean": 1e3 * run.metrics.steady_state_latency(),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - held_before}
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    depth = sources.SyntheticSource(
+        [mesh], trackers["three"].camera, traj, 1, seed=SEED).render(
+            torch.as_tensor(traj(FRAMES), device=dev)).cpu()
+    # timed in turns (three, six, six, three) before any profiling: the
+    # host's speed drifts within a run, and the profiler slows what
+    # follows it
+    turns = [(name, track_ms(trackers[name], depth))
+             for name in ("three", "six", "six", "three")]
+    for name in configs:
+        pair = [t for n, t in turns if n == name]
+        res[name].update({
+            k: statistics.mean(t[k] for t in pair) for k in pair[0]})
+        res[name]["track_ms_median_by_turn"] = [
+            t["track_ms_median"] for t in pair]
+    ratio = res["six"]["track_ms_median"] / res["three"]["track_ms_median"]
+    coverage = steady_coverage(trackers["three"], depth)
+    res["three"]["profile"] = profile_steps(trackers["three"], depth,
+                                            RGF_PROFILE_TABLE)
+    res["six"]["profile"] = profile_steps(trackers["six"], depth,
+                                          RGF6_PROFILE_TABLE)
+    del trackers, tracker
+
+    chunk = sensor_chunk(dev, cam)
+    emit({"phase": "rgf", "pixels": cam.num_pixels,
+          "triangles": mesh.padded_triangles, "sigma_points": 25,
+          "frames": FRAMES, "iterations": 3, **res["three"],
+          "launches": launches,
+          "six_iterations": {"trust_sigma": 1.5, **res["six"],
+                             "track_ms_ratio_to_three": ratio},
+          "steady_state_coverage": coverage,
+          "card_vs_cpu": rgf_against_cpu(dev, cam, mesh, traj),
+          "select": select_times(dev, cam, mesh, traj,
+                                 ((25, 6), (chunk, 4))),
+          "batched_step": batched_step_ms(dev, cam, mesh, traj)})
+
+
+def sensor_chunk(dev, cam):
+    """The particle chunk the memory budget gives the "deferred" sensor
+    at the slice's size."""
+    from dbot_ros_tpu_torch.ops.budget import deferred_particle_chunk
+    return deferred_particle_chunk(P, cam.num_pixels, 4, device=dev)
+
+
+def phase_deferred(dev):
+    """The particle tracker with the candidate-set ("deferred") sensor at
+    the slice's width (see the module docstring)."""
+    cam, mesh, traj = slice_scene()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    conf = cfg.ParticleTrackerConfig(
+        evaluation_count=P, backend="deferred", seed=SEED,
+        transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
+    tracker = ParticleTracker(conf, meshes=[mesh], camera=cam, device=dev)
+    source = sources.SyntheticSource([mesh], tracker.camera, traj,
+                                     DEFERRED_FRAMES, seed=SEED)
+    run = node.run(tracker, source)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    rmse = run.position_rmse()
+    check(np.all(np.isfinite(run.poses)) and rmse < RMSE_LIMIT_M,
+          f"position RMSE {rmse} m >= {RMSE_LIMIT_M}")
+    chunk = tracker.sensor.last_particle_chunk
+    check(chunk == sensor_chunk(dev, cam) and chunk < P,
+          f"unexpected particle chunk {chunk}")
+    depth = source.render(torch.as_tensor(traj(DEFERRED_FRAMES),
+                                          device=dev)).cpu()
+    times = track_ms(tracker, depth, runs=10)
+    peak = torch.cuda.max_memory_allocated() - held_before
+
+    # one frame's depths against the exact raycast at 512 particles
+    states = tracker.belief.states[:512, 0]
+    m, c = tracker.meshes[0], tracker.camera
+    render = deferred.make_deferred_renderer(m, c.rays, c.height, c.width)
+    d_def = render(se3.states_mean(states)[:7], states[:, :7])
+    d_ex = raycast.raycast_depth(m, states[:, :7], c.rays, 128)
+    hit_def, hit_ex = torch.isfinite(d_def), torch.isfinite(d_ex)
+    both = hit_def & hit_ex
+    differ = float((hit_def != hit_ex).float().mean())
+    off = float(((d_def[both] - d_ex[both]).abs() > 1e-4).float().mean())
+    check(differ < 0.005, f"{differ} of the depths differ in hit or miss")
+    emit({"phase": "deferred", "particles": P, "pixels": cam.num_pixels,
+          "triangles": mesh.padded_triangles, "frames": DEFERRED_FRAMES,
+          "position_rmse_m": rmse, **times,
+          "node_latency_ms_mean": 1e3 * run.metrics.steady_state_latency(),
+          "particle_chunk": chunk, "peak_mem_bytes": peak,
+          "launches": launches,
+          "against_exact_512_particles": {
+              "share_hit_miss_differ": differ,
+              "share_of_hit_pixels": float(hit_ex.float().mean()),
+              "share_common_depths_off_1e-4": off}})
+
+
 def main():
     phase_device()
     dev = torch.device("cuda")
@@ -879,6 +1295,9 @@ def main():
     phase_profile(tracker, depth, PROFILE_TABLE)
     del tracker
     phase_cli(dev)
+    phase_rgf(dev)
+    phase_cli(dev, kind="gaussian")
+    phase_deferred(dev)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -7,9 +7,6 @@ defaults follow the reference YAML (``object/…``, ``downsampling_factor``,
 ``evaluation_count``, ``max_kl_divergence``, noise sigmas, occlusion
 probabilities, ``tail_weight``, ``moving_average_update_rate``), so a
 config written for the JAX package loads here unchanged.
-``GaussianTrackerConfig`` is kept parseable so that ``load_config`` can
-say which tracker a file asks for; the Gaussian tracker itself is not
-ported yet (ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from dbot_ros_tpu_torch.filters.rbcpf import ParticleBelief
+from dbot_ros_tpu_torch.filters.rgf import GaussianBelief
 from dbot_ros_tpu_torch.models.beam import BeamParams
 from dbot_ros_tpu_torch.models.occlusion import OcclusionParams
 from dbot_ros_tpu_torch.models.transition import TransitionParams
@@ -117,6 +118,16 @@ def belief_from_numpy(states, log_weights, occlusion, num_pixels: int,
                                      device))
 
 
+def gaussian_belief_from_numpy(mean, cov, background, occ_prior=None,
+                               device=None) -> GaussianBelief:
+    """A GaussianBelief from the JAX belief's leaves (its key, kept there
+    for symmetry only, is dropped: the filter is deterministic)."""
+    return GaussianBelief(
+        mean=_tensor(mean, device), cov=_tensor(cov, device),
+        background=_tensor(background, device),
+        occ_prior=None if occ_prior is None else _tensor(occ_prior, device))
+
+
 def _npz_leaf(data, name):
     """One array of a JAX-written checkpoint: bfloat16 was stored as a
     uint16 view under ``name__bf16`` and comes back as float32 (exact)."""
@@ -128,12 +139,15 @@ def _npz_leaf(data, name):
     return None, False
 
 
-def checkpoint_from_jax(path, num_pixels: int, nb: int = 64,
-                        occ_dtype=None, device=None) -> ParticleBelief:
-    """Read a particle checkpoint written by the JAX package's
+def checkpoint_from_jax(path, num_pixels: int = None, nb: int = 64,
+                        occ_dtype=None, device=None):
+    """Read a checkpoint written by the JAX package's
     ``runtime.checkpoint.save_belief`` into the port's belief.
 
-    The occlusion field is a (P, N) map, the fused sensor's kernel layout
+    A Gaussian checkpoint gives a GaussianBelief (``occ_prior`` may be
+    absent; the file's ``key`` is ignored) and needs none of the other
+    arguments. A particle checkpoint needs ``num_pixels``: its occlusion
+    field is a (P, N) map, the fused sensor's kernel layout
     ``(n_pad·pr, 128)``, or the lazy ``(q, age)`` pair of leaves; it goes
     through :func:`occlusion_from_jax`. ``nb`` must be the JAX sensor's
     pixel block. ``occ_dtype`` defaults to the stored one (bfloat16 where
@@ -142,10 +156,14 @@ def checkpoint_from_jax(path, num_pixels: int, nb: int = 64,
     """
     data = np.load(path, allow_pickle=False)
     kind = str(data["__kind__"])
+    if kind == "gaussian":
+        return gaussian_belief_from_numpy(
+            data["mean"], data["cov"], data["background"],
+            data["occ_prior"] if "occ_prior" in data else None, device)
     if kind != "particle":
-        raise NotImplementedError(
-            f"{kind!r} checkpoints are not ported yet (ROADMAP queue A "
-            "item 10, the RGF stack)")
+        raise ValueError(f"unknown belief kind {kind!r}")
+    if num_pixels is None:
+        raise ValueError("a particle checkpoint needs num_pixels")
     occ, is_bf16 = _npz_leaf(data, "occlusion")
     age = None
     if occ is None:

@@ -10,8 +10,12 @@ reference plus a ``commit`` flag:
 CUDA device, their plain versions on the CPU), so the JAX package's
 configs drive the port unchanged. ``backend="xla"`` is the exact path:
 the chunked matmul raycast of every particle (ops/raycast.py) followed by
-``image_loglik`` on the ``(P, N)`` occlusion map. Multi-object scenes
-take the per-pixel minimum depth over the objects.
+``image_loglik`` on the ``(P, N)`` occlusion map. ``backend="deferred"``
+renders every particle against per-pixel candidate triangles found at
+the particles' mean pose (ops/deferred.py), in chunks of particles sized
+from the device's memory (ops/budget.py), and scores with the same
+``image_loglik``. Multi-object scenes take the per-pixel minimum depth
+over the objects.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from dbot_ros_tpu_torch.models.beam import BeamParams
 from dbot_ros_tpu_torch.models.image_loglik import image_loglik
 from dbot_ros_tpu_torch.models.occlusion import OcclusionParams
 from dbot_ros_tpu_torch.ops import raycast
-from dbot_ros_tpu_torch.ops.budget import xla_tri_chunk
+from dbot_ros_tpu_torch.ops.budget import (HOST_WORKSPACE_BYTES,
+                                            deferred_particle_chunk,
+                                            xla_tri_chunk)
 from dbot_ros_tpu_torch.utils.camera import CameraModel
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
 
@@ -45,7 +51,11 @@ def make_rb_sensor(meshes, camera: CameraModel, beam_params: BeamParams,
                    device=None, **backend_kwargs):
     """Build the loglik_fn for the particle filter on ``device`` (default:
     the camera's). ``backend_kwargs`` go to the fused sensor's factory;
-    the ``"xla"`` backend ignores them, as the reference does."""
+    the ``"xla"`` backend ignores them, as the reference does. The
+    ``"deferred"`` backend takes ``particle_chunk`` (particles rendered
+    at once; default: sized from ``capacity_bytes``, itself by default
+    the CUDA device's memory and, on a CPU device, the exact raycaster's
+    host workspace)."""
     if isinstance(meshes, TriangleMesh):
         meshes = [meshes]
     meshes = list(meshes)
@@ -54,12 +64,7 @@ def make_rb_sensor(meshes, camera: CameraModel, beam_params: BeamParams,
         return make_fused_sensor(meshes, camera, beam_params, occ_params,
                                  frame_rate, device=device,
                                  **backend_kwargs)
-    if backend == "deferred":
-        raise NotImplementedError(
-            "sensor backend 'deferred' is not ported yet (ROADMAP queue A "
-            "item 10, the sigma renderer of ops/deferred.py); use "
-            "backend='pallas' or 'xla'")
-    if backend != "xla":
+    if backend not in ("xla", "deferred"):
         raise ValueError(f"unknown sensor backend: {backend!r}")
 
     from dbot_ros_tpu_torch.ops.fused_sensor import _params_to
@@ -70,6 +75,10 @@ def make_rb_sensor(meshes, camera: CameraModel, beam_params: BeamParams,
     camera = camera.to(dev)
     bp, op = _params_to(beam_params, dev), _params_to(occ_params, dev)
 
+    if backend == "deferred":
+        return _make_deferred_sensor(meshes, camera, bp, op, frame_rate,
+                                     tri_chunk, dev, **backend_kwargs)
+
     def loglik_fn(states, occ, z_obs, dt, commit=True):
         # degrade the triangle chunk so the (P, N, chunk) intermediate fits
         chunk = xla_tri_chunk(states.shape[0], camera.num_pixels,
@@ -79,4 +88,57 @@ def make_rb_sensor(meshes, camera: CameraModel, beam_params: BeamParams,
                                     dt_frames=dt * frame_rate)
         return ll, (occ_post if commit else occ)
 
+    return loglik_fn
+
+
+def _make_deferred_sensor(meshes, camera, bp, op, frame_rate, tri_chunk,
+                          dev, particle_chunk: int = None,
+                          capacity_bytes: int = None):
+    """The candidate-set sensor: one exact reference render per object at
+    the particles' mean pose, then candidate-set intersection for the
+    whole batch, ``particle_chunk`` particles at a time; multi-object
+    scenes min-combine the per-object depths."""
+    from dbot_ros_tpu_torch.ops.deferred import make_deferred_renderer
+    from dbot_ros_tpu_torch.utils import se3
+
+    num_candidates = 4          # the reference's (its renderer's default)
+    renders = [
+        make_deferred_renderer(m, camera.rays, camera.height, camera.width,
+                               num_candidates=num_candidates,
+                               tri_chunk=tri_chunk)
+        for m in meshes]
+
+    def chunk_for(num_particles):
+        if particle_chunk is not None:
+            return max(int(particle_chunk), 1)
+        capacity = capacity_bytes
+        if capacity is None and dev.type != "cuda":
+            capacity = HOST_WORKSPACE_BYTES
+        return deferred_particle_chunk(
+            num_particles, camera.num_pixels, num_candidates, device=dev,
+            capacity_bytes=capacity)
+
+    def loglik_fn(states, occ, z_obs, dt, commit=True):
+        num = states.shape[0]
+        chunk = chunk_for(num)
+        loglik_fn.last_particle_chunk = chunk
+        # per frame and object: the candidate table at the mean pose and
+        # the slack of the whole cloud, shared by all chunks
+        tables = [(r.candidates(se3.states_mean(states[:, k])[:7]),
+                   r.slack(states[..., k, :7]))
+                  for k, r in enumerate(renders)]
+        parts = []
+        for lo in range(0, num, chunk):
+            depth = None
+            for k, (render, (cand, slack)) in enumerate(
+                    zip(renders, tables)):
+                d = render(None, states[lo:lo + chunk, k, :7], cand, slack)
+                depth = d if depth is None else torch.minimum(depth, d)
+            parts.append(depth.contiguous())
+        depth = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        ll, occ_post = image_loglik(depth, z_obs, occ, bp, op,
+                                    dt_frames=dt * frame_rate)
+        return ll, (occ_post if commit else occ)
+
+    loglik_fn.last_particle_chunk = None
     return loglik_fn

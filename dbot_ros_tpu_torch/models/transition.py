@@ -89,3 +89,19 @@ def sample_transition(states, dt, params: TransitionParams, e1=None,
     vel = se3.state_velocity(mean) + xi_v
     return se3.make_state(pose, vel)
 
+
+def process_noise_cov(dt, params: TransitionParams, dtype=torch.float32):
+    """12×12 tangent-space process covariance, order [dx, dθ, dv, dω].
+
+    Block structure per axis i: the exact integrated-Wiener 2×2
+    ``sigma² [[dt³/3, dt²/2], [dt²/2, dt]]`` between position and velocity.
+    ``dt`` is a Python float or a 0-d tensor.
+    """
+    sl = params.linear_acceleration_sigma ** 2
+    sa = params.angular_acceleration_sigma ** 2
+    sig2 = torch.cat([sl.expand(3), sa.expand(3)]).to(dtype)  # per pose-axis
+    qxx = torch.diag(sig2 * dt ** 3 / 3.0)
+    qxv = torch.diag(sig2 * dt ** 2 / 2.0)
+    qvv = torch.diag(sig2 * dt)
+    return torch.cat([torch.cat([qxx, qxv], dim=1),
+                      torch.cat([qxv, qvv], dim=1)], dim=0)

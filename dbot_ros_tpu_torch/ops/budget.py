@@ -124,9 +124,13 @@ def rgf_pixel_stride(num_pixels: int, padded_triangles: int,
     return stride
 
 
+# workspace of a render on the host (a CPU device has no capacity to ask)
+HOST_WORKSPACE_BYTES = 2 * 1024 ** 3
+
+
 def xla_tri_chunk(num_particles: int, num_pixels: int,
                   requested: int = 512,
-                  budget_bytes: int = 2 * 1024 ** 3,
+                  budget_bytes: int = HOST_WORKSPACE_BYTES,
                   min_chunk: int = 16) -> int:
     """Degrade the exact raycaster's triangle chunk to the particle count.
 
@@ -142,3 +146,36 @@ def xla_tri_chunk(num_particles: int, num_pixels: int,
         return degraded
     # degrade-only: never raise an explicitly tiny (but valid) request
     return min(requested, degraded)
+
+
+# float32 values alive per (pixel, candidate, particle) at the peak of the
+# candidate-set render (ops/deferred.py): the ten selected constants, the
+# three numerators and the inside-test's intermediates
+_DEFERRED_LIVE_VALUES = 32
+# the share of the capacity that one chunk's intermediates may take
+_DEFERRED_MEMORY_FRACTION = 0.1
+# a chunk of the particle axis is a multiple of this (the fused sensor's
+# particle padding)
+_CHUNK_MULTIPLE = 128
+
+
+def deferred_particle_chunk(num_particles: int, num_pixels: int,
+                            num_candidates: int = 4, device=None,
+                            capacity_bytes: int = None) -> int:
+    """How many particles the ``"deferred"`` sensor renders at once.
+
+    Eager PyTorch materializes every intermediate of the candidate-set
+    render, ``_DEFERRED_LIVE_VALUES`` float32 values per (pixel,
+    candidate, particle); the particles are rendered in chunks so that
+    these stay under a tenth of ``capacity_bytes`` (default: the CUDA
+    device's total memory; CPU callers pass it). The chunk is a multiple
+    of 128 (at least 128), or all particles when they fit. The results
+    do not depend on it."""
+    if capacity_bytes is None:
+        capacity_bytes = device_memory_bytes(device)
+    budget = capacity_bytes * _DEFERRED_MEMORY_FRACTION
+    per_particle = num_pixels * num_candidates * _DEFERRED_LIVE_VALUES * 4
+    fit = int(budget // max(per_particle, 1))
+    chunk = max(fit // _CHUNK_MULTIPLE * _CHUNK_MULTIPLE, _CHUNK_MULTIPLE)
+    return int(num_particles) if fit >= num_particles else min(
+        chunk, int(num_particles))

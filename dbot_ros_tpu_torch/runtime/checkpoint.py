@@ -1,16 +1,16 @@
 """Belief checkpoint / resume.
 
-Port of ``dbot_ros_tpu/runtime/checkpoint.py`` for particle beliefs: the
-belief (particles, weights, occlusion leaf) serializes to one ``.npz``
-in the reference's format: one entry per field, a multi-leaf field (the
-fused sensor's lazy ``(q, age)`` occlusion tuple) as ``name__i``, and a
-bfloat16 array as a bit-exact uint16 view under ``name__bf16``. The
-port's belief carries no random key; the tracker's generator state is
-saved beside it (``generator_state``) so a resumed run continues the
-same stream.
+Port of ``dbot_ros_tpu/runtime/checkpoint.py``: a belief (particles,
+weights and occlusion leaf, or Gaussian moments, background map and
+occlusion memory) serializes to one ``.npz`` in the reference's format:
+one entry per field, an optional field that is None left out
+(``occ_prior``), a multi-leaf field (the fused sensor's lazy ``(q, age)``
+occlusion tuple) as ``name__i``, and a bfloat16 array as a bit-exact
+uint16 view under ``name__bf16``. The port's beliefs carry no random
+key; a particle tracker's generator state is saved beside the belief
+(``generator_state``) so a resumed run continues the same stream.
 
-A Gaussian checkpoint raises NotImplementedError (the Gaussian filter is
-ROADMAP queue A item 10). For checkpoints written by the JAX package see
+For checkpoints written by the JAX package see
 ``interop.checkpoint_from_jax``.
 """
 
@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from dbot_ros_tpu_torch.filters.rbcpf import ParticleBelief
+from dbot_ros_tpu_torch.filters.rgf import GaussianBelief
 
 _BF16 = "__bf16"
+_KINDS = {"particle": ParticleBelief, "gaussian": GaussianBelief}
 
 
 def _encode(t: torch.Tensor):
@@ -46,11 +48,14 @@ def _decode(name, data, device):
 
 def save_belief(path: str, belief, generator=None) -> None:
     """Write ``belief`` (and the state of ``generator``, if given)."""
-    if not isinstance(belief, ParticleBelief):
+    kinds = [k for k, cls in _KINDS.items() if isinstance(belief, cls)]
+    if not kinds:
         raise TypeError(f"unknown belief type {type(belief)!r}")
     arrays = {}
     for f in dataclasses.fields(belief):
         v = getattr(belief, f.name)
+        if v is None:
+            continue                      # optional field (occ_prior)
         if isinstance(v, (tuple, list)):
             for i, leaf in enumerate(v):
                 arr, tag = _encode(leaf)
@@ -60,7 +65,7 @@ def save_belief(path: str, belief, generator=None) -> None:
             arrays[f.name + tag] = arr
     if generator is not None:
         arrays["generator_state"] = generator.get_state().cpu().numpy()
-    np.savez(path, __kind__=np.array("particle"), **arrays)
+    np.savez(path, __kind__=np.array(kinds[0]), **arrays)
 
 
 def load_belief(path: str, device=None, generator=None):
@@ -70,14 +75,11 @@ def load_belief(path: str, device=None, generator=None):
     its own state)."""
     data = np.load(path, allow_pickle=False)
     kind = str(data["__kind__"])
-    if kind == "gaussian":
-        raise NotImplementedError(
-            "Gaussian beliefs are not ported yet (ROADMAP queue A item "
-            "10, the RGF stack)")
-    if kind != "particle":
+    if kind not in _KINDS:
         raise ValueError(f"unknown belief kind {kind!r}")
+    cls = _KINDS[kind]
     kwargs = {}
-    for f in dataclasses.fields(ParticleBelief):
+    for f in dataclasses.fields(cls):
         arr = _decode(f.name, data, device)
         if arr is None:
             leaves = []
@@ -87,6 +89,8 @@ def load_belief(path: str, device=None, generator=None):
                     break
                 leaves.append(leaf)
             if not leaves:
+                if f.default is None:
+                    continue             # optional field left at default
                 raise KeyError(f"checkpoint missing field {f.name!r}")
             arr = tuple(leaves)
         kwargs[f.name] = arr
@@ -95,4 +99,4 @@ def load_belief(path: str, device=None, generator=None):
             data["generator_state"]))
         if state.numel() == generator.get_state().numel():
             generator.set_state(state)
-    return ParticleBelief(**kwargs)
+    return cls(**kwargs)

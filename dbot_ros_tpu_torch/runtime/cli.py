@@ -22,8 +22,8 @@ device the default fails, it never falls back to the CPU)::
         --auto-init --watchdog --output states.jsonl
     python -m dbot_ros_tpu_torch simulate --config cfg.yaml --frames 60
 
-Only particle-tracker configs run; a Gaussian config or ``--service``
-exits with a message naming ROADMAP.md.
+The config's ``tracker`` key picks the estimator (``particle`` or
+``gaussian``); ``--service`` exits with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -42,46 +42,16 @@ _INIT_BUDGET_USAGE = ("--init-budget needs AXES,SPINS,PARTICLES,STEPS "
                       "(four integers >= 1)")
 
 
-def describe(tracker) -> str:
-    """Human-readable composition of an assembled tracker: what got built
-    from the config (estimator, sensor backend, models, scene, camera)."""
-    cam = tracker.camera
-    mesh_str = ", ".join(
-        f"{m.num_triangles} tris (pad {m.padded_triangles})"
-        for m in tracker.meshes)
-    bp, op = tracker.beam_params, tracker.occ_params
-    c, tr = tracker.config, tracker.config.transition
-    lines = [
-        f"ParticleTracker (RBC-PF): {c.evaluation_count} particles, "
-        f"backend={c.backend}, max_kl={c.max_kl_divergence:g}, "
-        f"device={tracker.device}",
-        f"  camera: {cam.height}x{cam.width} ({cam.num_pixels} px), "
-        f"fx={float(cam.camera_matrix[0, 0]):.1f}",
-        f"  objects[{len(tracker.meshes)}]: {mesh_str}",
-        f"  beam model: sigma={float(bp.model_sigma):g} + "
-        f"{float(bp.sigma_factor):g}/m, tail={float(bp.tail_weight):g}, "
-        f"depth=[{float(bp.min_depth):g}, {float(bp.max_depth):g}] m",
-        f"  occlusion chain: p_v->o={float(op.p_occluded_visible):g}, "
-        f"p_o->o={float(op.p_occluded_occluded):g}, "
-        f"init={float(op.initial_occlusion_prob):g}",
-        f"  transition: damped Wiener, sigma_lin="
-        f"{tr.linear_acceleration_sigma:g}, sigma_ang="
-        f"{tr.angular_acceleration_sigma:g}, damping={tr.damping:g}",
-    ]
-    if c.moving_average_update_rate != 1.0:
-        lines.append(f"  output EMA rate={c.moving_average_update_rate:g}")
-    return "\n".join(lines)
-
-
 def _build_tracker(args):
-    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+    from dbot_ros_tpu_torch.trackers.base import describe
 
     conf = cfg.load_config(args.config)
-    if not isinstance(conf, cfg.ParticleTrackerConfig):
-        raise SystemExit(
-            "the Gaussian tracker is not ported yet (ROADMAP.md queue A "
-            "item 10, the RGF stack); use a particle-tracker config")
-    tracker = ParticleTracker(conf, device=args.device)
+    if isinstance(conf, cfg.ParticleTrackerConfig):
+        from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+        tracker = ParticleTracker(conf, device=args.device)
+    else:
+        from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
+        tracker = GaussianTracker(conf, device=args.device)
     print(describe(tracker), file=sys.stderr)
     return tracker, conf
 

@@ -79,16 +79,18 @@ def run(tracker, source, initial_pose=None,
     """Stream a source through a tracker.
 
     Args:
-      tracker: a ParticleTracker (initialize/track API).
+      tracker: a ParticleTracker or a GaussianTracker (initialize/track
+        API; the Gaussian tracker's background map is seeded from the
+        first frame).
       source: iterable of runtime.sources.Frame.
       initial_pose: model-frame pose(s); defaults to the source's first
         ground truth.
       on_frame: optional callback(frame, poses, info), the publisher
         hook; ``poses`` is a (K, 7) numpy array.
-      checkpoint_path, checkpoint_every: save the belief (and the
+      checkpoint_path, checkpoint_every: save the belief (and a particle
         tracker's generator state) every ``checkpoint_every`` frames.
       watchdog: optional runtime.watchdog.TrackingWatchdog, fed every
-        frame's StepInfo. When it trips, the tracker is re-initialized
+        frame's step info. When it trips, the tracker is re-initialized
         from the *current* frame by the 6-DoF search
         (runtime.initializer.initialize_tracker) racing at least two
         hypotheses. Tripped frame indices land in

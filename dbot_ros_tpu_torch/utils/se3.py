@@ -57,8 +57,9 @@ def quat_multiply(q1, q2):
 
 
 def quat_conjugate(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    # no constant built per call: on a CUDA device that would be a copy
+    # from the host, which drains the queue
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def _cross(a, b):

@@ -271,12 +271,28 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path, occ_dtype):
 
 
 def test_gaussian_checkpoint_names_the_roadmap(tmp_path):
+    """A Gaussian checkpoint, refused until the filter was ported, loads
+    through both readers; a missing field or an unknown kind is named."""
     path = str(tmp_path / "g.npz")
+    g = np.random.default_rng(8)
+    arrays = dict(mean=g.standard_normal(13).astype(np.float32),
+                  cov=np.eye(12, dtype=np.float32),
+                  background=g.uniform(1, 2, 40).astype(np.float32))
+    np.savez(path, __kind__=np.array("gaussian"),
+             key=np.zeros(2, np.uint32), **arrays)
+    for bel in (checkpoint.load_belief(path),
+                interop.checkpoint_from_jax(path, 1024)):
+        assert type(bel).__name__ == "GaussianBelief"
+        assert bel.occ_prior is None
+        for name, want in arrays.items():
+            np.testing.assert_array_equal(getattr(bel, name).numpy(), want)
     np.savez(path, __kind__=np.array("gaussian"), mean=np.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="cov"):
         checkpoint.load_belief(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.checkpoint_from_jax(path, 1024)
+    np.savez(path, __kind__=np.array("kalman"), mean=np.zeros(3))
+    for read in (checkpoint.load_belief, interop.checkpoint_from_jax):
+        with pytest.raises(ValueError, match="unknown belief kind"):
+            read(path)
 
 
 @pytest.mark.parametrize("layout", ["lazy_bf16", "lazy_f32", "pn_f32"])
@@ -496,11 +512,16 @@ def test_init_budget_valid_input_parses_as_the_reference():
         assert cli._parse_init_budget(args) == jcli._parse_init_budget(args)
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path, config_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, config_path, capsys):
+    # a Gaussian config, refused until the filter was ported, runs
+    conf = box_config(tmp_path, tracker="gaussian", update_iterations=2)
+    for key in ("evaluation_count", "max_kl_divergence", "backend"):
+        del conf[key]
     gauss = tmp_path / "gauss.json"
-    gauss.write_text(json.dumps({"tracker": "gaussian"}))
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(["simulate", "--config", str(gauss), "--device", "cpu"])
+    gauss.write_text(json.dumps(conf))
+    assert cli.main(["simulate", "--config", str(gauss), "--device", "cpu",
+                     "--frames", "4", "--distance", "0.6"]) == 0
+    assert last_summary(capsys)["frames"] == 4
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(["track", "--config", config_path, "--device", "cpu",
                   "--input", "none.npz", "--service", "sock"])

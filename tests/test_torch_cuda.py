@@ -13,7 +13,11 @@ in the order of the per-particle sum over pixels (rtol 1e-5 + 1e-4 nats
 per pixel) and by library exp/log rounding (occlusion 1e-6 in float32,
 one bf16 step, 4e-3, in bfloat16). Row moves are bit-exact. The whole
 sensor on the card against the CPU path is checked by ``chip_smoke.py``
-(its ``sensor`` phase).
+(its ``sensor`` phase). The Gaussian filter has no kernel of its own; its
+sigma renderer and one filter step are held card against CPU (hit masks
+equal on all but 0.2 % of the pixels, depths 1e-5; mean 1e-5, covariance
+rtol 1e-3 + 1e-8), which also shows that the ``_ex`` linear algebra and
+``torch.func.vmap`` take the same path on both devices.
 """
 
 import numpy as np
@@ -279,3 +283,85 @@ def test_lineage_gather_matches_plain_and_checks_its_arguments(cuda):
         kernels.lineage_gather(q, idx.cpu())
     with pytest.raises(ValueError, match="16-byte"):
         kernels.lineage_gather(q[:, :100].contiguous(), idx[:100])
+
+
+# ---------------------------------------------------------------------------
+# the Gaussian filter: card against CPU
+# ---------------------------------------------------------------------------
+
+def sigma_scene(seed=0):
+    from dbot_ros_tpu_torch.filters import rgf
+    from dbot_ros_tpu_torch.ops import sigma_points as sp
+
+    K = np.array([[60.0, 0, 20], [0, 60.0, 15], [0, 0, 1.0]])
+    cam = camera.make_camera(K, 30, 40)
+    m = mesh.tagged_l_mesh()
+    pose = np.array([0.01, 0.0, 0.6, 1, 0, 0, 0], np.float32)
+    truth = torch.tensor([0.014, 0.003, 0.604, 1, 0, 0, 0])
+    g = np.random.default_rng(seed)
+    z = raycast.raycast_depth(m, truth, cam.rays)
+    z = torch.where(torch.isfinite(z), z, 1.5) + torch.as_tensor(
+        0.002 * g.standard_normal(cam.num_pixels), dtype=torch.float32)
+    z[::31] = float("nan")
+    belief = rgf.init_belief(
+        pose, first_frame=np.full(cam.num_pixels, 1.5, np.float32),
+        initial_occlusion_prob=0.1)
+    states, _, _, _ = sp.sigma_points(
+        belief.mean, 0.05 * belief.cov, **sp.default_ut_params())
+    return cam, m, z, belief, states[:, :7]
+
+
+def test_sigma_renderer_matches_cpu(cuda):
+    from dbot_ros_tpu_torch.ops import deferred
+
+    cam, m, _, _, poses = sigma_scene()
+    outs = {}
+    for dev in ("cpu", cuda):
+        c, mm = cam.to(dev), m.to(dev)
+        render = deferred.make_sigma_renderer([mm], c.rays, c.height,
+                                              c.width)
+        outs[str(dev)] = render(poses.to(dev)).cpu()
+    want = outs["cpu"]
+    assert torch.isfinite(want).sum() > 1000
+    for key, got in outs.items():
+        flips = (torch.isfinite(got) != torch.isfinite(want)).float().mean()
+        both = torch.isfinite(got) & torch.isfinite(want)
+        assert float(flips) <= 0.002, (key, float(flips))
+        assert float((got[both] - want[both]).abs().max()) <= 1e-5, key
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_rgf_step_matches_cpu(cuda, batched):
+    import dataclasses
+
+    from dbot_ros_tpu_torch.filters import rgf
+    from dbot_ros_tpu_torch.models import transition
+
+    cam, m, z, belief, _ = sigma_scene()
+    outs = []
+    for dev in ("cpu", cuda):
+        c, mm = cam.to(dev), m.to(dev)
+        bp = beam.make_beam_params(device=dev)
+        op = occlusion.make_occlusion_params(device=dev)
+        tp = transition.make_transition_params(0.1, 0.5, 4.0, device=dev)
+
+        def render(poses, c=c, mm=mm):
+            return raycast.raycast_depth(mm, poses, c.rays)
+
+        b = dataclasses.replace(belief, **{
+            f.name: getattr(belief, f.name).to(dev)
+            for f in dataclasses.fields(belief)})
+        if batched:
+            step = rgf.make_batched_step(render, tp, 1 / 30, bp,
+                                         iterations=2, occ_params=op)
+            nb, info = step(rgf.stack_beliefs([b, b]),
+                            torch.stack([z, z]).to(dev))
+            nb = dataclasses.replace(nb, mean=nb.mean[1], cov=nb.cov[1])
+        else:
+            nb, info = rgf.rgf_step(b, z.to(dev), render, tp, 1 / 30, bp,
+                                    iterations=2, occ_params=op)
+        outs.append((nb.mean.cpu(), nb.cov.cpu()))
+    (mean_c, cov_c), (mean_g, cov_g) = outs
+    assert bool(torch.isfinite(mean_g).all())
+    torch.testing.assert_close(mean_g, mean_c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cov_g, cov_c, atol=1e-8, rtol=1e-3)

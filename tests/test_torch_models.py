@@ -204,8 +204,9 @@ def test_sensor_factory_backends():
     s = sensor.make_rb_sensor(m, cam, bp, op, backend="pallas", nb=32)
     assert isinstance(s, fs.FusedSensor) and s.nb == 32
     assert callable(sensor.make_rb_sensor(m, cam, bp, op, backend="xla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sensor.make_rb_sensor(m, cam, bp, op, backend="deferred")
+    deferred = sensor.make_rb_sensor(m, cam, bp, op, backend="deferred",
+                                     particle_chunk=8)
+    assert callable(deferred) and deferred.last_particle_chunk is None
     with pytest.raises(ValueError):
         sensor.make_rb_sensor(m, cam, bp, op, backend="opengl")
     # the reference's "pallas" lineage mode selects the port's one kernel;

@@ -264,9 +264,14 @@ def test_unported_entry_points_raise():
     src = [sources.Frame(0, np.full(320, 2.0, np.float32), REFS[:1])]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         node.run(tracker, src, service=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParticleTracker(cfg.ParticleTrackerConfig(backend="deferred"),
-                        meshes=[mesh.box_mesh()], device="cpu")
+    # the "deferred" backend, held to raise until the sigma renderer was
+    # ported, builds and runs
+    deferred = ParticleTracker(
+        cfg.ParticleTrackerConfig(evaluation_count=16, backend="deferred"),
+        meshes=[mesh.box_mesh()], camera=camera.make_camera(K, 16, 20),
+        device="cpu")
+    run = node.run(deferred, src)
+    assert run.poses.shape == (1, 1, 7) and np.isfinite(run.poses).all()
     xla = ParticleTracker(
         cfg.ParticleTrackerConfig(evaluation_count=16, backend="xla"),
         meshes=[mesh.box_mesh()], camera=camera.make_camera(K, 16, 20),
