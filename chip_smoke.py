@@ -77,11 +77,33 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
 10. deferred: ``ParticleTracker(backend="deferred")``, 10,000 particles,
    20 frames, RMSE under 1 cm; the particle chunk the memory budget
    chose, peak memory, and 512 particles' depths against the exact
-   raycast (share of (particle, pixel) pairs that differ).
+   raycast (share of (particle, pixel) pairs that differ);
+11. live: the deployment path. 240 frames of the slice's trajectory are
+   rendered first, into a host list, by ``OracleSource`` at the Kinect's
+   native 640×480 grid (edge artifacts 0.3, whole millimetres) and
+   converted by ``U16CameraAdapter`` (uint16 mm, the native 8× strided
+   downsample); render and conversion are timed per frame. A
+   ``ThreadedSource`` (capacity 8) replays them at 30 Hz from its
+   producer thread into ``node.run`` with the slice's particle tracker
+   and a socket ``TrackerService``; a client thread sends, through
+   ``service.call``: status, pause (0.3 s) and resume, checkpoint,
+   reset_pose to the ground truth, find_object at frame 60 (the search at
+   its default budget; the ring drops the frames that arrive meanwhile)
+   and shutdown at frame 225 or when the camera has 6 frames left.
+   Checks: every tracked frame launched the four kernels; skipped plus
+   tracked frames equal the last index; the pause held; the service
+   applied every command without an error; ``reinit_frames`` holds the
+   search's frame; the last 30 tracked frames within 1 cm; the
+   checkpoint loads, restores and tracks. Prints ``track`` median and
+   p90, frames dropped in all, in the pause and in the search, the
+   search's seconds, render and conversion ms, ms from push to pose.
 
-The kernels phase also times the two row kernels cold. None of the three
-new paths launches a hand-written kernel (the reference's are plain
-array code too): their launch counts are printed and are zero.
+The kernels phase also times the two row kernels cold. The rgf, rgf_cli
+and deferred paths launch no hand-written kernel (the reference's are
+plain array code too): their launch counts are printed and are zero.
+The kernels line gives each kernel's launches in the slice
+(``launches``) and in the live phase (``live_launches``), each counted
+from 0 just before that path and read just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -90,10 +112,12 @@ The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 import contextlib
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -163,6 +187,18 @@ RENDER_FLIP_SHARE, RENDER_DEPTH_ATOL = 0.002, 1e-5
 COVERAGE_FRAME0, COVERAGE_STEADY = 0.45, 0.80
 DEFERRED_FRAMES = 20
 BATCHED_SCENES = 4
+# the live phase: a 30 Hz camera at 640×480 (8 s), a ring of 8 frames
+LIVE_FRAMES = 240
+LIVE_RATE_HZ = 30
+LIVE_CAPACITY = 8
+LIVE_PAUSE_S = 0.3
+LIVE_FIND_FRAME = 60
+LIVE_SHUTDOWN_FRAME = 225
+LIVE_SHUTDOWN_MARGIN = 6
+LIVE_LAST_FRAMES = 30
+LIVE_CLIENT_TIMEOUT_S = 120.0
+# how often the operator's client asks for the status while it waits
+LIVE_POLL_S = 0.05
 
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
@@ -1285,8 +1321,266 @@ def phase_deferred(dev):
               "share_common_depths_off_1e-4": off}})
 
 
+class StampedSource(sources.ThreadedSource):
+    """A ``ThreadedSource`` that notes when each frame index is pushed
+    (for the push-to-pose latency)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pushed_at = {}
+
+    def push(self, depth, index=None, ground_truth=None):
+        self.pushed_at[index] = time.perf_counter()
+        super().push(depth, index, ground_truth)
+
+
+def render_live_frames(dev, cam, mesh, traj):
+    """The live phase's whole sequence, rendered first into a host list:
+    ``OracleSource`` at 8 × ``cam``'s grid (the Kinect's native 640×480
+    for the slice's 80×60), then the u16
+    transport and the native 8× downsample of ``U16CameraAdapter``. → the
+    frames and the per-frame ms of the render (to the host) and of the
+    conversion."""
+    native_cam = sources.scale_camera(cam.to(dev), 8)
+    oracle = sources.OracleSource(mesh, native_cam, traj, LIVE_FRAMES,
+                                  edge_artifacts=0.3, quantize_mm=True,
+                                  seed=SEED)
+    adapter = sources.U16CameraAdapter(oracle, 8)
+    frames, render_ms, u16_ms = [], [], []
+    for t in range(LIVE_FRAMES):
+        poses, occ, p_drop = oracle.frame_inputs(t)
+        draws = oracle.draw()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = oracle.render(torch.as_tensor(poses, device=dev),
+                          torch.as_tensor(occ, device=dev), p_drop,
+                          draws).cpu().numpy()
+        t1 = time.perf_counter()
+        depth = adapter.convert(z)
+        t2 = time.perf_counter()
+        frames.append(sources.Frame(t, depth, poses))
+        render_ms.append(1e3 * (t1 - t0))
+        u16_ms.append(1e3 * (t2 - t1))
+    return frames, native_cam, render_ms, u16_ms
+
+
+def live_client(sock, traj, ckpt, frames_left, log):
+    """The operator: status, pause ~0.3 s and resume, checkpoint,
+    reset_pose to the current ground truth, find_object near frame
+    ``LIVE_FIND_FRAME``, then shutdown at frame ``LIVE_SHUTDOWN_FRAME`` or
+    when the camera has at most ``LIVE_SHUTDOWN_MARGIN`` frames left to
+    send, whichever comes first; every call through the socket, with
+    timeouts. Writes what it saw into ``log``."""
+    from dbot_ros_tpu_torch.runtime.service import call
+
+    deadline = time.time() + LIVE_CLIENT_TIMEOUT_S
+
+    def status():
+        return call(sock, {"cmd": "status"}, timeout=5.0)
+
+    def wait_for(cond, what):
+        while time.time() < deadline:
+            st = status()
+            if cond(st):
+                return st
+            time.sleep(LIVE_POLL_S)
+        raise TimeoutError(what)
+
+    def wait_frame(n):
+        return wait_for(lambda st: st.get("frame") is not None
+                        and st["frame"] >= n, f"the loop never reached "
+                        f"frame {n}")
+
+    def wait_applied(seq):
+        return wait_for(lambda st: st["applied_seq"] >= seq,
+                        f"command {seq} was never applied")
+
+    def queued(cmd):
+        r = call(sock, cmd, timeout=5.0)
+        check(r.get("ok") and r.get("queued"), f"{cmd['cmd']}: {r}")
+        log.setdefault("seqs", []).append(r["seq"])
+        return r["seq"]
+
+    try:
+        log["status"] = wait_frame(5)
+        wait_frame(15)
+        check(call(sock, {"cmd": "pause"}, timeout=5.0)["paused"], "pause")
+        time.sleep(0.1)
+        first = status()
+        time.sleep(LIVE_PAUSE_S - 0.1)
+        held = status()
+        check(call(sock, {"cmd": "resume"}, timeout=5.0)["paused"] is False,
+              "resume")
+        log["pause"] = {"frame": first["frame"], "paused": held["paused"],
+                        "frame_after_hold": held["frame"]}
+        wait_frame(held["frame"] + 1)
+        seq = queued({"cmd": "checkpoint", "path": ckpt})
+        log["checkpoint_frame"] = wait_applied(seq)["frame"]
+        st = wait_frame(log["checkpoint_frame"] + 10)
+        seq = queued({"cmd": "reset_pose",
+                      "pose": traj(st["frame"] + 1)[0].tolist()})
+        log["reset_frame"] = wait_applied(seq)["frame"]
+        wait_frame(LIVE_FIND_FRAME)
+        seq = queued({"cmd": "find_object"})
+        wait_applied(seq)
+        st = wait_for(lambda st: st["frame"] >= LIVE_SHUTDOWN_FRAME
+                      or frames_left() <= LIVE_SHUTDOWN_MARGIN,
+                      "no frame to shut down on")
+        log["shutdown_sent_at"] = {"frame": st["frame"],
+                                   "frames_left": frames_left()}
+        queued({"cmd": "shutdown"})
+    except Exception as e:  # noqa: BLE001 - raised by the phase
+        log["error"] = f"{type(e).__name__}: {e}"
+
+
+def phase_live(dev, card):
+    """The live runtime at the slice's width (see the module docstring);
+    the socket and the checkpoint live in a short temporary directory
+    (AF_UNIX paths hold at most 108 bytes)."""
+    tmp = tempfile.mkdtemp(prefix="dbt")
+    try:
+        return live_in(dev, card, Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def live_in(dev, card, tmp):
+    from dbot_ros_tpu_torch.runtime.service import TrackerService
+
+    cam, mesh, traj = slice_scene()
+    frames, native_cam, render_ms, u16_ms = render_live_frames(
+        dev, cam, mesh, traj)
+    check(frames[0].depth.shape == (cam.height, cam.width),
+          f"converted frame {frames[0].depth.shape}")
+    valid = np.concatenate([f.depth[np.isfinite(f.depth)] for f in frames])
+    check(np.allclose(valid * 1000, np.round(valid * 1000), atol=1e-3),
+          "depth not in whole millimetres after the u16 transport")
+
+    tracker = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
+                              device=dev)
+    # warm up (a live camera does not wait), then start from the truth
+    tracker.initialize(frames[0].ground_truth)
+    for _ in range(3):
+        tracker.track(frames[0].depth)
+    tracker.initialize(frames[0].ground_truth)
+
+    sock, ckpt = str(tmp / "c.sock"), str(tmp / "belief.npz")
+    service = TrackerService(sock)
+    src = StampedSource(frames, rate_hz=LIVE_RATE_HZ, capacity=LIVE_CAPACITY)
+    per_frame, posed_at, log = [], {}, {}
+
+    def on_frame(frame, poses, info):
+        posed_at[frame.index] = time.perf_counter()
+        per_frame.append({k: w.launches for k, w in WRAPPERS.items()})
+
+    client = threading.Thread(
+        target=live_client, daemon=True,
+        args=(sock, traj, ckpt, lambda: LIVE_FRAMES - len(src.pushed_at),
+              log))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    client.start()
+    try:
+        run = node.run(tracker, src, on_frame=on_frame, service=service)
+        launches = {k: w.launches for k, w in WRAPPERS.items()}
+    finally:
+        client.join(LIVE_CLIENT_TIMEOUT_S)
+        service.close()
+    check(not client.is_alive(), "the client thread did not finish")
+    check("error" not in log, f"client: {log.get('error')}")
+    check(src.wait_closed(timeout=30), "the producer did not finish")
+
+    prev = {k: 0 for k in WRAPPERS}
+    for i, counts in enumerate(per_frame):
+        for k in WRAPPERS:
+            check(counts[k] > prev[k], f"{k} not launched on tracked frame "
+                  f"{run.metrics.records[i].frame}")
+        prev = counts
+    tracked = [m.frame for m in run.metrics.records]
+    skipped = [m.skipped or 0 for m in run.metrics.records]
+    check(sum(skipped) + len(tracked) == tracked[-1] + 1,
+          "skipped + tracked frames != last tracked index + 1")
+    # the frame the loop popped when it saw the shutdown is not tracked
+    check(src.skipped_total + len(tracked) + 1 == src.last_index + 1,
+          f"skipped {src.skipped_total} + tracked {len(tracked)} + the "
+          f"shutdown frame != last popped index {src.last_index} + 1")
+    st = service.status()
+    check(st["applied_seq"] == log["seqs"][-1] and st["last_error"] is None,
+          f"service status at the end: {st}")
+    check(tracked[-1] < LIVE_FRAMES - 1, "the stream ended before shutdown")
+    reinit = run.reinit_frames
+    check(len(reinit) == 1 and reinit[0] >= LIVE_FIND_FRAME,
+          f"reinit_frames {reinit}")
+    check(log["pause"]["paused"] and log["pause"]["frame_after_hold"]
+          == log["pause"]["frame"], f"the pause did not hold: {log['pause']}")
+
+    err = np.linalg.norm(run.poses[:, 0, :3] - run.ground_truth[:, 0, :3],
+                         axis=1)
+    check(np.all(np.isfinite(run.poses)), "non-finite pose")
+    check(err[-LIVE_LAST_FRAMES:].max() < RMSE_LIMIT_M,
+          f"last {LIVE_LAST_FRAMES} frames up to "
+          f"{err[-LIVE_LAST_FRAMES:].max()} m off; (frame, skipped, error "
+          "mm, hypotheses, ESS) from the search on: " + json.dumps([
+              (m.frame, m.skipped, round(1e3 * float(e), 2),
+               m.trial_hypotheses, m.ess and round(m.ess))
+              for m, e in zip(run.metrics.records, err)
+              if m.frame >= reinit[0]]))
+
+    # the checkpoint loads, restores and tracks one frame
+    gen = torch.Generator(device=dev)
+    belief = checkpoint.load_belief(ckpt, device=dev, generator=gen)
+    restored = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
+                               device=dev)
+    restored.generator = gen
+    restored.restore(belief)
+    f_ck = log["checkpoint_frame"]
+    poses, _ = restored.track(frames[f_ck].depth)
+    ck_err = float(torch.linalg.norm(
+        poses.reshape(-1, 7)[0, :3].cpu()
+        - torch.as_tensor(frames[f_ck].ground_truth[0, :3])))
+    check(ck_err < RMSE_LIMIT_M, f"restored checkpoint is {ck_err} m off")
+
+    lat = np.array([m.latency_s for m in run.metrics.records]) * 1e3
+    trial = np.array([bool(m.trial_hypotheses)
+                      for m in run.metrics.records])
+    push_pose = np.array([1e3 * (posed_at[i] - src.pushed_at[i])
+                          for i in tracked])
+    after = [i for i, f in enumerate(tracked) if f > reinit[0]]
+    resumed = [i for i, f in enumerate(tracked) if f > log["pause"]["frame"]]
+    emit({"phase": "live", "card": card, "particles": P,
+          "native_grid": [native_cam.height, native_cam.width],
+          "pixels": cam.num_pixels, "triangles": mesh.padded_triangles,
+          "stream_frames": LIVE_FRAMES, "rate_hz": LIVE_RATE_HZ,
+          "ring_capacity": LIVE_CAPACITY, "tracked_frames": len(tracked),
+          "last_tracked_frame": tracked[-1],
+          "last_popped_frame": src.last_index,
+          "dropped_total": src.skipped_total,
+          "dropped_in_search": skipped[after[0]] if after else None,
+          # the frame popped before the hold is tracked after it; the
+          # next pop finds the frames the ring dropped meanwhile
+          "dropped_in_pause": skipped[resumed[1]],
+          "search_seconds": run.reinit_seconds[0],
+          "find_object_frame": reinit[0],
+          "track_ms_median": float(np.median(lat)),
+          "track_ms_p90": float(np.percentile(lat, 90)),
+          "track_ms_median_outside_trial": float(np.median(lat[~trial])),
+          "trial_frames": int(trial.sum()),
+          "push_to_pose_ms_median": float(np.median(push_pose)),
+          "push_to_pose_ms_p90": float(np.percentile(push_pose, 90)),
+          "oracle_render_ms_median": statistics.median(render_ms),
+          "u16_convert_ms_median": statistics.median(u16_ms),
+          "last30_max_error_m": float(err[-LIVE_LAST_FRAMES:].max()),
+          "position_rmse_m": run.position_rmse(),
+          "checkpoint_frame": f_ck, "checkpoint_restored_error_m": ck_err,
+          "reset_frame": log["reset_frame"], "pause": log["pause"],
+          "shutdown_sent_at": log["shutdown_sent_at"],
+          "status_fields": sorted(log["status"]),
+          "launches": launches})
+    return launches
+
+
 def main():
-    phase_device()
+    card = phase_device()
     dev = torch.device("cuda")
     phase_build()
     kres = phase_kernels(dev)
@@ -1298,9 +1592,10 @@ def main():
     phase_rgf(dev)
     phase_cli(dev, kind="gaussian")
     phase_deferred(dev)
+    live_launches = phase_live(dev, card)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
+         "launches": launches[name], "live_launches": live_launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},

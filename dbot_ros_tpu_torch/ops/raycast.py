@@ -5,6 +5,10 @@ Möller–Trumbore constants form a ``(3T, 3)`` matrix ``G`` so that
 ``rays (N, 3) @ Gᵀ`` gives ``[u_num | v_num | det]`` per triangle, and
 ``t = t_num / det`` is the z-depth of a z = 1 ray. Products run in full
 float32 (TF32 stays off, PyTorch's default).
+
+:func:`raycast_oracle` is the independent golden path (textbook
+Möller–Trumbore on transformed vertices) that tests and
+``runtime.sources.OracleSource`` render with.
 """
 
 from __future__ import annotations
@@ -95,6 +99,53 @@ def raycast_depth(mesh: TriangleMesh, poses, rays, tri_chunk: int = 512):
         tmin = torch.min(t, dim=-1).values
         zmin = tmin if zmin is None else torch.minimum(zmin, tmin)
     return zmin
+
+
+# the oracle's (rays, triangles) intermediates stay under this many bytes
+ORACLE_BUDGET_BYTES = 256 << 20
+# bytes per (ray, triangle) pair alive at once in one chunk: pvec and the
+# product feeding each dot (2 × 12), det, u, v, t and their masks (~40)
+_ORACLE_BYTES_PER_PAIR = 64
+
+
+def raycast_oracle(mesh: TriangleMesh, pose, rays, near=_NEAR,
+                   ray_chunk=None):
+    """Golden-path raycast for one pose ``(7,)`` → depth ``(N,)`` (inf =
+    miss): textbook Möller–Trumbore (pvec/qvec) on pose-transformed
+    vertices, shared with neither :func:`raycast_depth` nor the kernels.
+
+    Runs over ``ray_chunk`` rays at a time (default: as many as keep the
+    chunk's intermediates under ``ORACLE_BUDGET_BYTES``, 256 MiB; a
+    640×480 frame against 1408 triangles unchunked would need 5.2 GB
+    for one ``(N, T, 3)`` intermediate alone).
+    """
+    v = se3.pose_apply(pose, mesh.vertices)               # (V, 3)
+    a = v[mesh.faces[:, 0]]                               # (T, 3)
+    e1 = v[mesh.faces[:, 1]] - a
+    e2 = v[mesh.faces[:, 2]] - a
+    tvec = -a                                             # origin at 0
+    qvec = torch.linalg.cross(tvec, e1)                   # (T, 3)
+    t_num = torch.sum(e2 * qvec, dim=-1)                  # (T,)
+    T = a.shape[0]
+    if ray_chunk is None:
+        ray_chunk = max(1, ORACLE_BUDGET_BYTES
+                        // (_ORACLE_BYTES_PER_PAIR * max(T, 1)))
+    out = []
+    for d in torch.split(rays, ray_chunk):
+        pvec = torch.linalg.cross(d[:, None, :].expand(-1, T, 3),
+                                  e2[None].expand(d.shape[0], T, 3))
+        det = torch.sum(e1 * pvec, dim=-1)                # (C, T)
+        u = torch.sum(tvec * pvec, dim=-1)
+        del pvec
+        vv = torch.sum(d[:, None, :] * qvec, dim=-1)
+        # inside test multiplied through by sign(det): both windings hit
+        s = torch.sign(det)
+        adet = torch.abs(det)
+        hit = ((adet > _DET_EPS) & (s * u >= 0) & (s * vv >= 0)
+               & (s * (u + vv) <= adet) & (s * t_num > near * adet))
+        t = torch.where(hit, t_num / torch.where(hit, det, 1.0), MISS_DEPTH)
+        out.append(torch.min(t, dim=-1).values)
+    return torch.cat(out)
 
 
 def render_depth_image(mesh: TriangleMesh, poses, camera, tri_chunk=512):

@@ -6,7 +6,8 @@ Port of ``dbot_ros_tpu/runtime/cli.py``:
     sequence, streaming ObjectState records to JSONL and reporting RMSE
     when the recording carries ground truth. ``--auto-init`` finds the
     first pose by the 6-DoF search, ``--watchdog`` re-acquires after a
-    loss, ``--checkpoint`` saves the belief.
+    loss, ``--checkpoint`` saves the belief, ``--service SOCKET`` takes
+    control commands on a Unix socket (``runtime/service.py``).
   * ``simulate``: closed-loop synthetic evaluation: render a scripted
     ground-truth trajectory through the production raycaster, track it,
     report RMSE.
@@ -23,7 +24,7 @@ device the default fails, it never falls back to the CPU)::
     python -m dbot_ros_tpu_torch simulate --config cfg.yaml --frames 60
 
 The config's ``tracker`` key picks the estimator (``particle`` or
-``gaussian``); ``--service`` exits with a message naming ROADMAP.md.
+``gaussian``).
 """
 
 from __future__ import annotations
@@ -158,10 +159,6 @@ def cmd_track(args):
     from dbot_ros_tpu_torch.runtime.publisher import ObjectStatePublisher
     from dbot_ros_tpu_torch.runtime.sources import ReplaySource
 
-    if getattr(args, "service", None):
-        raise SystemExit(
-            "--service: the control service is not ported yet (ROADMAP.md "
-            "queue A, 'What the first slices left out': service)")
     tracker, conf = _build_tracker(args)
     source = ReplaySource(args.input)
 
@@ -190,6 +187,10 @@ def cmd_track(args):
         names=[str(m) for m in mesh_names],
         meshes=conf.object.mesh_paths() or None,
         path=args.output)
+    service = None
+    if getattr(args, "service", None):
+        from dbot_ros_tpu_torch.runtime.service import TrackerService
+        service = TrackerService(args.service)
     try:
         # With --auto-init the tracker is already initialized above and
         # node.run skips initialization when initial_pose is None.
@@ -199,9 +200,12 @@ def cmd_track(args):
                        checkpoint_path=args.checkpoint,
                        checkpoint_every=args.checkpoint_every,
                        watchdog=_make_watchdog(args),
-                       reinit_kwargs=init_kw or None)
+                       reinit_kwargs=init_kw or None,
+                       service=service)
     finally:
         publisher.close()
+        if service is not None:
+            service.close()
     _summarize(run, "track")
     if getattr(args, "metrics", None):
         run.metrics.to_jsonl(args.metrics)
@@ -302,7 +306,10 @@ def main(argv=None):
     p_track.add_argument("--checkpoint", default=None)
     p_track.add_argument("--checkpoint-every", type=int, default=0)
     p_track.add_argument("--service", default=None, metavar="SOCKET",
-                         help="control service (not ported yet)")
+                         help="serve the newline-JSON control protocol "
+                              "(status, pause, resume, reset_pose, "
+                              "find_object, checkpoint, shutdown) on this "
+                              "Unix socket")
     p_track.set_defaults(fn=cmd_track)
 
     p_sim = sub.add_parser("simulate",

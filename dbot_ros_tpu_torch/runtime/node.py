@@ -3,8 +3,8 @@
 Port of ``run`` and ``TrackRun`` from ``dbot_ros_tpu/runtime/node.py``:
 wire a frame source to a tracker, collect per-frame metrics and the
 estimated trajectory, checkpoint the belief, re-acquire through the
-watchdog, and (with ground truth) report pose RMSE. Not ported yet: the
-control service (passing one raises NotImplementedError).
+watchdog, take commands from the control service, and (with ground
+truth) report pose RMSE.
 """
 
 from __future__ import annotations
@@ -86,7 +86,10 @@ def run(tracker, source, initial_pose=None,
       initial_pose: model-frame pose(s); defaults to the source's first
         ground truth.
       on_frame: optional callback(frame, poses, info), the publisher
-        hook; ``poses`` is a (K, 7) numpy array.
+        hook; ``poses`` is a (K, 7) numpy array. A frame that reports
+        ``skipped`` dropped frames is propagated over ``1 + skipped``
+        frame intervals, but the first frame after a re-initialization
+        over at most the transition's damping time (see below).
       checkpoint_path, checkpoint_every: save the belief (and a particle
         tracker's generator state) every ``checkpoint_every`` frames.
       watchdog: optional runtime.watchdog.TrackingWatchdog, fed every
@@ -97,12 +100,12 @@ def run(tracker, source, initial_pose=None,
         ``TrackRun.reinit_frames``.
       reinit_kwargs: forwarded to that search (n_axes, n_spins,
         refine_particles, depth range: speed against robustness).
-      service: the control service, not ported yet.
+      service: optional runtime.service.TrackerService: its queued
+        commands (reset_pose, find_object, checkpoint, shutdown) are
+        applied on this thread before each frame, a pause holds the loop
+        without pulling frames, and the status is updated after each
+        frame. Its ``find_object`` frames join ``reinit_frames``.
     """
-    if service is not None:
-        raise NotImplementedError(
-            "the control service is not ported yet (ROADMAP queue A, "
-            "'What the first slices left out': service)")
     frames = iter(source)
     first = next(frames)
 
@@ -130,14 +133,51 @@ def run(tracker, source, initial_pose=None,
                             "evaluation_count", None)
     # frames dropped by a push source propagate over the real interval
     base_dt = getattr(tracker, "_dt", None)
+    # A re-initialization (a service command applied before a frame, or
+    # the watchdog's search after one) places the belief at that frame,
+    # and a push source drops the frames that arrive while it runs (~150
+    # in a 5 s search at 30 Hz). The reference propagates the next frame
+    # over all of them: its integrated-Wiener noise grows as dt^3 (sigma
+    # 0.65 m per axis after 5 s at 0.1 m/s^1.5) and loses a 10k-particle
+    # belief. The port propagates it over the real interval up to the
+    # transition's damping time 1/damping (0.25 s by default), the
+    # longest over which that noise still models the damped motion.
+    damping = getattr(getattr(tracker, "trans_params", None), "damping",
+                      None)
+    reinit_max_dt = (1.0 / float(damping)
+                     if damping is not None and float(damping) > 0
+                     else base_dt)
+    reanchored = False
+
+    def pump_service(frame):
+        """Apply queued commands; hold here while paused (no frame is
+        pulled, so a paused replay resumes where it stopped). False =
+        shutdown."""
+        if service is None:
+            return True
+        while True:
+            if service.apply_pending(tracker, frame, reinit_kwargs):
+                return False
+            if not service.paused:
+                return True
+            time.sleep(0.01)
 
     def handle(frame):
+        nonlocal reanchored
+        belief = getattr(tracker, "belief", None)
+        if not pump_service(frame):
+            return False                          # shutdown requested
+        # a command re-initialized the tracker on this frame
+        commanded = getattr(tracker, "belief", None) is not belief
         t0 = time.perf_counter()
         trial_n = getattr(tracker, "trial_active", None)
         skipped = getattr(frame, "skipped", None)
-        if base_dt is not None and skipped:
-            poses, info = tracker.track(frame.depth,
-                                        dt=base_dt * (1 + skipped))
+        # a commanded re-initialization placed the belief at this frame
+        if base_dt is not None and skipped and not commanded:
+            dt = base_dt * (1 + skipped)
+            if reanchored:
+                dt = max(base_dt, min(dt, reinit_max_dt))
+            poses, info = tracker.track(frame.depth, dt=dt)
         else:
             poses, info = tracker.track(frame.depth)
         poses = poses.detach().cpu().numpy()     # waits for the device
@@ -154,6 +194,7 @@ def run(tracker, source, initial_pose=None,
         log.append(m)
         if on_frame is not None:
             on_frame(frame, poses, info)
+        reanchored = commanded
         if watchdog is not None and watchdog.update(info, num_particles):
             # tracking lost: global re-acquisition on the current frame.
             # Contained: a degenerate frame (an all-NaN burst, exactly the
@@ -172,6 +213,7 @@ def run(tracker, source, initial_pose=None,
                                       **(reinit_kwargs or {})})
                 reinit_frames.append(frame.index)
                 reinit_seconds.append(time.perf_counter() - t_search)
+                reanchored = True
             except Exception as e:  # noqa: BLE001 - keep tracking
                 print(f"watchdog re-init failed on frame {frame.index}: "
                       f"{type(e).__name__}: {e}", file=sys.stderr)
@@ -180,10 +222,18 @@ def run(tracker, source, initial_pose=None,
             from dbot_ros_tpu_torch.runtime.checkpoint import save_belief
             save_belief(checkpoint_path, tracker.belief,
                         generator=getattr(tracker, "generator", None))
+        if service is not None:
+            service.update_status(frame.index, poses)
+        return True
 
-    handle(first)
-    for frame in frames:
-        handle(frame)
+    if handle(first):
+        for frame in frames:
+            if not handle(frame):
+                break
+
+    if service is not None:
+        reinit_frames = reinit_frames + list(service.reinit_frames)
+        reinit_seconds = reinit_seconds + list(service.reinit_seconds)
 
     num_objects = len(getattr(tracker, "meshes", [None]))
     return TrackRun(

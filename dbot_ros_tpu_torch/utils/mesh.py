@@ -144,9 +144,20 @@ def parse_obj(text: str):
 
 def load_obj(path, center: bool = True, scale: float = 1.0,
              pad_to: int = 128, device=None) -> TriangleMesh:
-    """Load a Wavefront .obj file into a TriangleMesh (Python parser)."""
-    with open(path, "r") as fh:
-        v, f = parse_obj(fh.read())
+    """Load a Wavefront .obj file into a TriangleMesh.
+
+    The native C++ parser reads it (built at first use, see
+    ``dbot_ros_tpu_torch/native``); a file it refuses goes to the Python
+    parser, which raises on what it cannot use, as in the reference.
+    """
+    from dbot_ros_tpu_torch.native import try_parse_obj_native
+
+    result = try_parse_obj_native(str(path))
+    if result is None:
+        with open(path, "r") as fh:
+            v, f = parse_obj(fh.read())
+    else:
+        v, f = result
     return make_mesh(v * scale, f, center=center, pad_to=pad_to,
                      device=device)
 

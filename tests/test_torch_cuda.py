@@ -17,7 +17,9 @@ sensor on the card against the CPU path is checked by ``chip_smoke.py``
 sigma renderer and one filter step are held card against CPU (hit masks
 equal on all but 0.2 % of the pixels, depths 1e-5; mean 1e-5, covariance
 rtol 1e-3 + 1e-8), which also shows that the ``_ex`` linear algebra and
-``torch.func.vmap`` take the same path on both devices.
+``torch.func.vmap`` take the same path on both devices. The live path
+(oracle frames, the u16 transport, the threaded source and the socket
+service) runs once, short, with the kernels counted per frame.
 """
 
 import numpy as np
@@ -365,3 +367,89 @@ def test_rgf_step_matches_cpu(cuda, batched):
     assert bool(torch.isfinite(mean_g).all())
     torch.testing.assert_close(mean_g, mean_c, atol=1e-5, rtol=0)
     torch.testing.assert_close(cov_g, cov_c, atol=1e-8, rtol=1e-3)
+
+
+def test_live_path_through_the_u16_camera_and_the_socket(cuda):
+    """A short live run on the card: 20 oracle frames at 4 × the tracker's
+    grid through ``U16CameraAdapter`` into a ``ThreadedSource`` at 30 Hz,
+    the particle tracker in ``node.run`` with a socket ``TrackerService``;
+    a client reads ``status`` and sends ``shutdown``. Every tracked frame
+    launches all four kernels."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import time
+
+    from dbot_ros_tpu_torch import config as cfg
+    from dbot_ros_tpu_torch.runtime import node, sources
+    from dbot_ros_tpu_torch.runtime.service import TrackerService, call
+    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+
+    K = np.array([[48.0, 0, 16], [0, 48.0, 16], [0, 0, 1.0]])
+    cam = camera.make_camera(K, 32, 32, device=cuda)
+    m = mesh.box_mesh(0.08, 0.06, 0.05)
+
+    def traj(t):
+        return np.array([[0.0005 * t, 0.0, 0.6, 1, 0, 0, 0]], np.float32)
+
+    oracle = sources.OracleSource(m, sources.scale_camera(cam, 4), traj, 20,
+                                  noise_sigma=0.002, edge_artifacts=0.3,
+                                  quantize_mm=True)
+    frames = list(sources.U16CameraAdapter(oracle, 4))
+    assert frames[0].depth.shape == (32, 32)
+    tracker = ParticleTracker(cfg.ParticleTrackerConfig(
+        evaluation_count=1000, backend="pallas", seed=0), meshes=[m],
+        camera=cam, device=cuda)
+    # build the kernels and warm up first: a live camera does not wait
+    tracker.initialize(frames[0].ground_truth)
+    tracker.track(frames[0].depth)
+    tracker.initialize(frames[0].ground_truth)
+    tmp = tempfile.mkdtemp(prefix="dbt")
+    sock = os.path.join(tmp, "c.sock")
+    svc = TrackerService(sock)
+    seen = {}
+
+    def client():
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            st = call(sock, {"cmd": "status"}, timeout=5.0)
+            if st.get("frame") is not None and st["frame"] >= 10:
+                seen["status"] = st
+                seen["shutdown"] = call(sock, {"cmd": "shutdown"},
+                                        timeout=5.0)
+                return
+            time.sleep(0.01)
+
+    counts = []
+    wrappers = (kernels.fused_loglik, kernels.gather_pixel_rows,
+                kernels.scatter_pixel_rows, kernels.lineage_gather)
+    for w in wrappers:
+        w.launches = 0
+
+    def on_frame(frame, poses, info):
+        counts.append([w.launches for w in wrappers])
+
+    src = sources.ThreadedSource(frames, rate_hz=30, capacity=8)
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    try:
+        run = node.run(tracker, src, on_frame=on_frame, service=svc)
+    finally:
+        t.join(60)
+        svc.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not t.is_alive()
+    assert seen["status"]["ok"] and len(seen["status"]["poses"][0]) == 7
+    assert seen["shutdown"]["ok"]
+    assert svc.status()["applied_seq"] == 1 and svc.status()["last_error"] \
+        is None
+    assert 10 <= len(run.poses) < 20
+    prev = [0] * 4
+    for row in counts:
+        assert all(c > p for c, p in zip(row, prev)), counts
+        prev = row
+    assert src.wait_closed(timeout=10)
+    err = np.linalg.norm(run.poses[-1, 0, :3]
+                         - traj(run.metrics.records[-1].frame)[0, :3])
+    assert err < 0.01, err

@@ -37,6 +37,7 @@ from dbot_ros_tpu_torch import interop
 from dbot_ros_tpu_torch.filters import rbcpf
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
 from dbot_ros_tpu_torch.runtime import node, sources
+from dbot_ros_tpu_torch.runtime.service import TrackerService
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
 from dbot_ros_tpu_torch.utils import camera, mesh
 
@@ -251,9 +252,9 @@ def test_restore_then_track_leaves_the_saved_belief_unchanged():
 
 
 def test_unported_entry_points_raise():
-    """What is still to port raises, naming the roadmap; what this test
-    held to raise before (island trials, watchdog, checkpoint, the "xla"
-    backend) now runs."""
+    """What this test held to raise before (island trials, watchdog,
+    checkpoint, the "xla" and "deferred" backends, the control service)
+    now runs."""
     K = np.array([[30.0, 0, 10], [0, 30.0, 8], [0, 0, 1.0]])
     tracker = ParticleTracker(
         cfg.ParticleTrackerConfig(evaluation_count=16, backend="pallas"),
@@ -262,8 +263,14 @@ def test_unported_entry_points_raise():
     tracker.initialize(REFS[0], hypotheses=np.stack([REFS[0]] * 2))
     assert tracker.trial_active == 2
     src = [sources.Frame(0, np.full(320, 2.0, np.float32), REFS[:1])]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        node.run(tracker, src, service=object())
+    # the control service, held to raise until it was ported, runs
+    svc = TrackerService()
+    svc.submit({"cmd": "checkpoint", "path": "/nonexistent/dir/b.npz"})
+    run = node.run(tracker, src, service=svc)
+    assert run.poses.shape == (1, 1, 7)
+    st = svc.status()
+    assert st["frame"] == 0 and st["applied_seq"] == 1
+    assert "checkpoint (seq 1)" in st["last_error"]
     # the "deferred" backend, held to raise until the sigma renderer was
     # ported, builds and runs
     deferred = ParticleTracker(
