@@ -96,20 +96,43 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    search's frame; the last 30 tracked frames within 1 cm; the
    checkpoint loads, restores and tracks. Prints ``track`` median and
    p90, frames dropped in all, in the pause and in the search, the
-   search's seconds, render and conversion ms, ms from push to pose.
+   search's seconds, render and conversion ms, ms from push to pose;
+12. scale: the distributed filter (``dbot_ros_tpu_torch.parallel``).
+   One rank under NCCL on the card: ``make_distributed_step(exchange=
+   "counts")`` over the slice's 60 frames at its width (position RMSE
+   under 1 cm, every kernel launched), three forced-resample frames
+   against ``rbcpf_step`` with the same draws, 2 scenes × 10,000
+   particles through the multi-scene step (each under 1 cm), and the
+   step's median ms beside ``track``'s, timed in turns. Then two gloo
+   ranks started with ``spawn`` share the card, 5,000 particles each,
+   collectives staged through pinned host memory: on a frame whose
+   surplus fits the counts buffers (C = 640) and on one that overflows
+   to the ring, ``counts``, ``ring`` and ``neighbor`` must equal
+   ``all_gather`` bit for bit in states, log weights and the map's
+   particle columns (the lazy ages are compared and reported, not
+   required); ms, bytes sent and staging seconds per step per mode; the
+   two-width lineage gather must launch on both ranks; the dry run
+   (``parallel.dryrun``) at world size 2. A rank that fails, or outlives
+   its time, fails the phase. One card cannot measure scaling
+   efficiency: these are mechanics.
 
-The kernels phase also times the two row kernels cold. The rgf, rgf_cli
+The kernels phase also times the two row kernels cold, and the lineage
+gather at two widths: the exchange's shapes for two ranks of 5,000
+(a 640-column buffer out of a 5,120-column map, a map out of one buffer,
+a map out of the 10,240-column concatenation of two), bit-exact. The rgf, rgf_cli
 and deferred paths launch no hand-written kernel (the reference's are
 plain array code too): their launch counts are printed and are zero.
 The kernels line gives each kernel's launches in the slice
-(``launches``) and in the live phase (``live_launches``), each counted
-from 0 just before that path and read just after.
+(``launches``), in the live phase (``live_launches``) and in the scale
+phase's one-rank run (``scale_launches``), each counted from 0 just
+before that path and read just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import shutil
@@ -125,16 +148,20 @@ import numpy as np
 import torch
 
 from dbot_ros_tpu_torch import config as cfg
-from dbot_ros_tpu_torch.filters import rgf
+from dbot_ros_tpu_torch.filters import rbcpf, rgf
 from dbot_ros_tpu_torch.models import beam, occlusion, transition
 from dbot_ros_tpu_torch.ops import build, deferred, kernels, raycast
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
 from dbot_ros_tpu_torch.ops import resample
+from dbot_ros_tpu_torch.parallel import comm as comm_mod
+from dbot_ros_tpu_torch.parallel import dist_filter, dryrun
 from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
+from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
 from dbot_ros_tpu_torch.utils import se3
-from dbot_ros_tpu_torch.utils.camera import default_kinect_camera, make_camera
+from dbot_ros_tpu_torch.utils.camera import (default_kinect_camera,
+                                           make_camera, preprocess_depth)
 from dbot_ros_tpu_torch.utils.mesh import icosphere_mesh, tagged_l_mesh
 
 P = 10_000
@@ -199,6 +226,18 @@ LIVE_LAST_FRAMES = 30
 LIVE_CLIENT_TIMEOUT_S = 120.0
 # how often the operator's client asks for the status while it waits
 LIVE_POLL_S = 0.05
+# the scale phase: one rank under NCCL, then two gloo ranks on the card
+SCALE_BACKEND = "nccl"
+SCALE_SCENES = 2
+SCALE_SCENE_FRAMES = 30
+SCALE_RANKS = 2
+SCALE_GROUP_TIMEOUT_S = 120.0
+SCALE_RANK_TIMEOUT_S = 300.0
+SCALE_WARMUP, SCALE_STEPS = 2, 5
+# one-rank step against rbcpf_step: occlusion of the particles that kept
+# their parent within one bf16 step (a moved parent shifts the cloud's
+# mean, and with it, rarely, a candidate pixel)
+SCALE_OCC_ATOL = 4e-3
 
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
@@ -550,7 +589,8 @@ def phase_kernels(dev):
          for m, r in zip(maps, rows)])
     del q_k, q_p, maps, rows
 
-    out["lineage_gather"], lineage = lineage_results(dev, q, g)
+    out["lineage_gather"], lineage, real = lineage_results(dev, q, g)
+    out["lineage_gather"]["two_widths"] = lineage_two_widths(dev, real, g)
     # what device_ms reads for a kernel that does next to nothing: every
     # time above includes it
     tiny = torch.zeros((1024,), device=dev)
@@ -562,7 +602,7 @@ def phase_kernels(dev):
               "loglik": f"|d| <= {LL_RTOL}*|ll| + {LL_ATOL_PER_PIXEL}*n",
               "occ": f"<= {OCC_ULPS} bf16 ulp, {OCC_F32_ATOL} in float32",
               "fused_twice": "bit-identical", "rows": "bit-exact",
-              "lineage": "bit-exact"},
+              "lineage": "bit-exact", "lineage_two_widths": "bit-exact"},
           "results": out, "fused_other_shapes": fused_more,
           "lineage_parents": lineage})
     return out
@@ -684,7 +724,71 @@ def lineage_results(dev, q, g):
                 [lambda m=m: m.clone() for m in maps])
             del maps
     per_case["real_step"] = stats
-    return main, per_case
+    return main, per_case, real
+
+
+def lineage_two_widths(dev, parents, g):
+    """The lineage gather with a source and an output of different widths,
+    at the exchange's shapes for two ranks of L = 5,000 (a real step's
+    parents split in two): the C = 640 columns rank 0 ships to rank 1 out
+    of its 5,120-column map (counts), rank 1's 5,120 columns out of one
+    received 640-column buffer, and out of the 10,240-column concatenation
+    of both maps (all_gather); the first two again with a full buffer.
+    Bit-exact against the plain version; times, bound and
+    ``index_select`` as for the equal widths."""
+    L = P // 2
+    p_l = fs.particle_pad(L)
+    C = dist_filter.counts_capacity(L)
+    n_rows = fs._round_up(default_kinect_camera(8).num_pixels, 64)
+    par = parents[L:].long()
+    owner = torch.div(par, L, rounding_mode="floor")
+    chg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                     par[1:] != par[:-1]])
+    shipped = par[(owner == 0) & chg][:C]
+    rows = torch.zeros(C, dtype=torch.long, device=dev)
+    rows[:shipped.shape[0]] = shipped
+    mask = owner == 0
+    slot = torch.cumsum((mask & chg).long(), 0) - 1
+    pad = torch.arange(L, p_l, device=dev)
+    cidx = torch.cat([torch.where(mask, slot, 0), pad.clamp(max=C - 1)])
+    gidx = torch.cat([owner * p_l + (par - owner * L),
+                      pad.clamp(max=2 * p_l - 1)])
+    # the same shapes with every buffer column distinct: a frame whose
+    # surplus fills the buffer (sorted rows spread over the map, every
+    # slot of the buffer named by runs of offspring)
+    full_rows = torch.sort(torch.randperm(L, generator=g, device=dev)[:C])[0]
+    full_slots = torch.sort(torch.randint(0, C, (L,), generator=g,
+                                          device=dev))[0]
+    full_slots[:C] = torch.arange(C, device=dev)
+    full_slots = torch.sort(full_slots)[0]
+    cases = {"buffer": (p_l, rows), "receive": (C, cidx),
+             "concat": (2 * p_l, gidx), "buffer_full": (p_l, full_rows),
+             "receive_full": (C, torch.cat([full_slots,
+                                            pad.clamp(max=C - 1)]))}
+    out = {}
+    for name, (p_in, idx64) in cases.items():
+        src = torch.rand((n_rows, p_in), generator=g,
+                         device=dev).to(torch.bfloat16)
+        idx = idx64.to(torch.int32)
+        got = kernels.lineage_gather(src, idx)
+        want = kernels.lineage_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        check(got.shape == (n_rows, idx.shape[0])
+              and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"lineage_gather differs at two widths ({name})")
+        lib_idx = idx64.clamp(0, p_in - 1)
+        times = time_pair(lambda: kernels.lineage_gather_plain(src, idx),
+                          lambda: kernels.lineage_gather(src, idx),
+                          library=lambda: src.index_select(1, lib_idx))
+        cols_read = int(lib_idx.unique().numel())
+        times.update(roofline(cols_read * n_rows * src.element_size()
+                              + nbytes(got) + nbytes(idx)))
+        times.update({"p_in": p_in, "p_out": idx.shape[0], "rows": n_rows,
+                      "columns_read": cols_read, "max_abs_err": 0.0})
+        out[name] = times
+    out["rows_shipped"] = int(shipped.shape[0])
+    out["offspring_from_rank0"] = int(mask.sum())
+    return out
 
 
 def phase_sensor(dev):
@@ -1579,6 +1683,372 @@ def live_in(dev, card, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# scale: the distributed filter (one rank under NCCL, two gloo ranks on
+# the one card)
+# ---------------------------------------------------------------------------
+
+def scale_scene(dev, particles, rank=0, size=1):
+    """The slice's tracker (for its sensor, camera, transition and start
+    belief), its source, trajectory, and this rank's block of the
+    ``particles``-particle start belief."""
+    cam, mesh, traj = slice_scene()
+    conf = slice_config()
+    conf.evaluation_count = particles
+    tracker = ParticleTracker(conf, meshes=[mesh], camera=cam, device=dev)
+    tracker.initialize(traj(0))
+    bel = tracker.belief
+    L = particles // size
+    rows = slice(rank * L, (rank + 1) * L)
+    q = tracker.sensor.init_occlusion(L, conf.observation
+                                      .initial_occlusion_prob)
+    block = rbcpf.ParticleBelief(bel.states[rows].clone(),
+                                 bel.log_weights[rows].clone(), q)
+    return tracker, traj, block
+
+
+def depth_of(source, traj, t, dev):
+    z = source.render(torch.as_tensor(traj(t), device=dev))
+    return preprocess_depth(z.reshape(-1).to(dev))
+
+
+def model_position(tracker, mean_state):
+    return base.to_model_frame(mean_state[:, :7], tracker.centers)[:, :3]
+
+
+def scale_track(dev, comm):
+    """The counts step over the slice's 60 frames on one rank: kernel
+    launches, position RMSE, the last belief."""
+    tracker, traj, belief = scale_scene(dev, P)
+    source = sources.SyntheticSource(tracker.meshes, tracker.camera, traj,
+                                     FRAMES, seed=SEED)
+    step = dist_filter.make_distributed_step(
+        comm, tracker.sensor, tracker.trans_params, tracker._dt,
+        max_kl_divergence=tracker.config.max_kl_divergence,
+        exchange="counts", seed=SEED)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    err, paths = [], set()
+    for t, frame in enumerate(source):
+        z = preprocess_depth(torch.as_tensor(frame.depth, device=dev)
+                             .reshape(-1))
+        belief, mean, _ = step(belief, z)
+        paths.update(step.paths)
+        err.append(model_position(tracker, mean) - torch.as_tensor(
+            traj(t)[:, :3], device=dev))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    for k, n in launches.items():
+        check(n > 0, f"scale: {k} never launched on the distributed path")
+    rmse = float(torch.sqrt(torch.mean(
+        torch.stack(err).pow(2).sum(-1))))
+    check(rmse < RMSE_LIMIT_M, f"scale: position RMSE {rmse} m")
+    return tracker, traj, source, step, belief, launches, rmse, sorted(paths)
+
+
+def scale_against_rbcpf(dev, comm, tracker, traj, source, belief):
+    """Three forced-resample frames: the one-rank step and ``rbcpf_step``
+    from one belief with the same draws. Parents may move at a CDF tie
+    (the two normalize in another order): at most one per frame; the rest
+    agree to float rounding."""
+    step = dist_filter.make_distributed_step(
+        comm, tracker.sensor, tracker.trans_params, tracker._dt,
+        max_kl_divergence=-1.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    mine = dataclasses.replace(belief, occlusion=tuple(
+        x.clone() for x in belief.occlusion))
+    ref = dataclasses.replace(belief, occlusion=tuple(
+        x.clone() for x in belief.occlusion))
+    worst = {"states": 0.0, "log_weights": 0.0, "mean": 0.0, "occ": 0.0,
+             "moved": 0}
+    for t in range(3):
+        z = depth_of(source, traj, FRAMES + t, dev)
+        noise = [rbcpf.BlockNoise(
+            e1=torch.randn((P, 6), generator=gen, device=dev),
+            e2=torch.randn((P, 6), generator=gen, device=dev),
+            u=torch.rand((), generator=gen, device=dev))]
+        mine, mean, _ = step(mine, z, noise=noise)
+        ref, info = rbcpf.rbcpf_step(ref, z, tracker.sensor,
+                                     tracker.trans_params, tracker._dt,
+                                     max_kl_divergence=-1.0, noise=noise)
+        d = (mine.states - ref.states).abs().reshape(P, -1).amax(1)
+        moved = d > 2e-5
+        keep = ~moved
+        qa = tracker.sensor.occlusion_as_pn(mine.occlusion, P)[keep]
+        qb = tracker.sensor.occlusion_as_pn(ref.occlusion, P)[keep]
+        for k, v in (("states", float(d[keep].max())),
+                     ("log_weights", float((mine.log_weights
+                                            - ref.log_weights).abs().max())),
+                     ("mean", float((mean - info.mean_state).abs().max())),
+                     ("occ", float((qa - qb).abs().max()))):
+            worst[k] = max(worst[k], v)
+        worst["moved"] = max(worst["moved"], int(moved.sum()))
+    check(worst["moved"] <= 1 and worst["states"] <= 2e-5
+          and worst["log_weights"] == 0.0 and worst["mean"] <= 1e-5
+          and worst["occ"] <= SCALE_OCC_ATOL,
+          f"scale: one-rank step against rbcpf_step {worst}")
+    return worst
+
+
+def scale_scenes(dev):
+    """Two scenes of 10,000 particles each (the second 3 cm aside) through
+    the multi-scene step on one rank; each scene's position RMSE."""
+    groups = dist_filter.make_scene_groups(1, 1)
+    tracker, traj, block = scale_scene(dev, P)
+
+    def traj2(t):
+        return traj(t) + np.array([[0.03, 0, 0, 0, 0, 0, 0]], np.float32)
+
+    trajs = [traj, traj2]
+    srcs = [sources.SyntheticSource(tracker.meshes, tracker.camera, tr,
+                                    SCALE_SCENE_FRAMES, seed=SEED + s)
+            for s, tr in enumerate(trajs)]
+    beliefs = dist_filter.init_multi_scene_belief(
+        groups, torch.stack([base.to_center_frame(
+            torch.as_tensor(tr(0), device=dev), tracker.centers)
+            for tr in trajs]), SCALE_SCENES, P,
+        sensor=tracker.sensor, device=dev)
+    step = dist_filter.make_multi_scene_step(
+        groups, tracker.sensor, tracker.trans_params, tracker._dt,
+        max_kl_divergence=tracker.config.max_kl_divergence, seed=SEED)
+    err = []
+    for t, frames in enumerate(zip(*srcs)):
+        z = torch.stack([preprocess_depth(torch.as_tensor(
+            f.depth, device=dev).reshape(-1)) for f in frames])
+        beliefs, means, _ = step(beliefs, z)
+        err.append(torch.stack([
+            model_position(tracker, means[s]) - torch.as_tensor(
+                trajs[s](t)[:, :3], device=dev)
+            for s in range(SCALE_SCENES)]))
+    rmse = torch.sqrt(torch.stack(err).pow(2).sum(-1).mean(0)).reshape(-1)
+    rmse = [float(r) for r in rmse]
+    check(max(rmse) < RMSE_LIMIT_M, f"scale: scene RMSE {rmse} m")
+    return rmse
+
+
+def scale_times(dev, step, belief, tracker, source, traj):
+    """Median ms of the one-rank counts step and of ``track`` on the same
+    frame, timed in turns (step, track, track, step)."""
+    z = depth_of(source, traj, FRAMES, dev)
+    depth = z.cpu()
+    tracker.restore(tracker.belief)
+    out = {"step": [], "track": []}
+    for name in ("step", "track", "track", "step"):
+        for i in range(WARMUP + TIMING_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "step":
+                belief, _, _ = step(belief, z)
+            else:
+                tracker.track(depth)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                out[name].append(1e3 * (time.perf_counter() - t0))
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def marked_block(dev, tracker, block, rank):
+    """This rank's start block for the exchange checks: all particles at
+    the start pose (a still transition keeps them there, so the weights
+    are the skew given) and a map whose columns differ, by a seeded draw,
+    only off the object's silhouette (dilated by 3 pixels), where the
+    sensor never changes a row: a wrong parent shows in the map."""
+    cam = tracker.camera
+    z = raycast.raycast_depth(tracker.meshes[0], block.states[0, 0, :7],
+                              cam.rays)
+    hit = torch.isfinite(z).reshape(1, 1, cam.height, cam.width).float()
+    grown = torch.nn.functional.max_pool2d(hit, 7, 1, 3).reshape(-1) > 0
+    q, age = block.occlusion
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31 + rank)
+    marks = torch.rand(q.shape, generator=g, device=dev).to(q.dtype)
+    rows = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
+    rows[:grown.shape[0]] = ~grown
+    q = torch.where(rows[:, None], marks, q)
+    states = block.states[:1].expand_as(block.states).clone()
+    return rbcpf.ParticleBelief(states, block.log_weights.clone(),
+                                (q, age))
+
+
+def scale_rank(rank, world, port, out_dir, device):
+    """One of two gloo ranks sharing the card (started with ``spawn``):
+    the exchanges against all_gather on skewed forced frames, times and
+    traffic per mode, the dry run. Writes ``rank<r>.json``; raises on a
+    failed check (the parent sees the exit code)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    comm = comm_mod.init_process_group("gloo", rank, world, port,
+                                       SCALE_GROUP_TIMEOUT_S)
+    L = P // world
+    for w in WRAPPERS.values():
+        w.launches = 0
+    kernels.lineage_gather.two_width_launches = 0
+    tracker, traj, block = scale_scene(dev, P, rank, world)
+    base_block = marked_block(dev, tracker, block, rank)
+    source = sources.SyntheticSource(tracker.meshes, tracker.camera, traj,
+                                     1, seed=SEED)
+    z = depth_of(source, traj, 0, dev)
+    still = transition.make_transition_params(1e-6, 1e-6, 0.0, device=dev)
+    idx = torch.arange(rank * L, (rank + 1) * L, device=dev)
+    frames = {
+        # within one hop, under the capacity: the counts buffers carry it
+        "fits": 0.4 * torch.sin(idx.float()),
+        # rank 0 weighs nothing: its offspring descend from ~2,500
+        # distinct particles of rank 1, more than C = 640: the ring runs
+        "overflow": (torch.full((L,), -500.0, device=dev) if rank == 0
+                     else 0.01 * torch.sin(idx.float())),
+    }
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 100 + rank)
+    gs = torch.Generator(device=dev)
+    gs.manual_seed(SEED + 100)
+    res = {"rank": rank, "frames": {}}
+    for fname, lw in frames.items():
+        noise = [rbcpf.BlockNoise(
+            e1=torch.randn((L, 6), generator=g, device=dev),
+            e2=torch.randn((L, 6), generator=g, device=dev),
+            u=torch.rand((), generator=gs, device=dev))]
+        outs, rec = {}, {}
+        for mode in dist_filter.EXCHANGES:
+            step = dist_filter.make_distributed_step(
+                comm, tracker.sensor, still, tracker._dt,
+                max_kl_divergence=-1.0, exchange=mode)
+            start = dataclasses.replace(
+                base_block, log_weights=lw.clone(),
+                occlusion=tuple(x.clone() for x in base_block.occlusion))
+            before = dict(comm.bytes_sent)
+            stage0 = comm.staging_seconds
+            outs[mode], _, _ = step(start, z, noise=noise)
+            torch.cuda.synchronize()
+            rec[mode] = {"path": step.paths,
+                         "bytes": sum(comm.bytes_sent[k] - before[k]
+                                      for k in before),
+                         "staging_s": comm.staging_seconds - stage0}
+        ref = outs["all_gather"]
+        check(bool((ref.log_weights == 0).all()), "scale: no resample")
+        for mode, b in outs.items():
+            same = (torch.equal(b.states, ref.states)
+                    and torch.equal(b.log_weights, ref.log_weights)
+                    and torch.equal(b.occlusion[0][:, :L].view(torch.int16),
+                                    ref.occlusion[0][:, :L]
+                                    .view(torch.int16)))
+            check(same, f"scale: {mode} differs from all_gather on rank "
+                        f"{rank} ({fname})")
+            rec[mode]["bit_equal"] = same
+            rec[mode]["age_equal"] = torch.equal(b.occlusion[1],
+                                                 ref.occlusion[1])
+        res["frames"][fname] = rec
+    check(res["frames"]["fits"]["counts"]["path"] == ["counts"],
+          f"scale: the fitting frame took {res['frames']['fits']}")
+    check(res["frames"]["overflow"]["counts"]["path"] == ["ring"],
+          "scale: the overflow frame did not fall back to the ring")
+
+    # ms per step per mode on the fitting frame's weights
+    res["ms_per_step"], res["bytes_per_step"], res["staging_s_per_step"] = \
+        {}, {}, {}
+    for mode in dist_filter.EXCHANGES:
+        step = dist_filter.make_distributed_step(
+            comm, tracker.sensor, still, tracker._dt,
+            max_kl_divergence=-1.0, exchange=mode, seed=SEED)
+        ms = []
+        bytes0, stage0 = sum(comm.bytes_sent.values()), comm.staging_seconds
+        for i in range(SCALE_WARMUP + SCALE_STEPS):
+            start = dataclasses.replace(
+                base_block, log_weights=frames["fits"].clone(),
+                occlusion=tuple(x.clone() for x in base_block.occlusion))
+            if i == SCALE_WARMUP:
+                bytes0 = sum(comm.bytes_sent.values())
+                stage0 = comm.staging_seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(start, z)
+            torch.cuda.synchronize()
+            if i >= SCALE_WARMUP:
+                ms.append(1e3 * (time.perf_counter() - t0))
+        res["ms_per_step"][mode] = statistics.median(ms)
+        res["bytes_per_step"][mode] = (sum(comm.bytes_sent.values())
+                                       - bytes0) / SCALE_STEPS
+        res["staging_s_per_step"][mode] = ((comm.staging_seconds - stage0)
+                                           / SCALE_STEPS)
+    res["dryrun"] = dryrun.dryrun(dev, SCALE_GROUP_TIMEOUT_S)
+    torch.cuda.synchronize()
+    res["launches"] = {k: w.launches for k, w in WRAPPERS.items()}
+    res["two_width_launches"] = kernels.lineage_gather.two_width_launches
+    check(res["two_width_launches"] > 0,
+          f"scale: the two-width gather never launched on rank {rank}")
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    comm.barrier()
+
+
+def scale_two_ranks(dev):
+    """Two gloo ranks sharing the card, collectives staged through pinned
+    host memory; the parent fails if a rank fails or outlives its time."""
+    out_dir = Path(tempfile.mkdtemp(prefix="dbt_scale"))
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = comm_mod.free_port()
+    procs = [ctx.Process(target=scale_rank,
+                         args=(r, SCALE_RANKS, port, str(out_dir),
+                               str(dev)))
+             for r in range(SCALE_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(SCALE_RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * SCALE_RANKS, f"scale: ranks exited with {codes}")
+    res = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(SCALE_RANKS)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res, time.perf_counter() - t0
+
+
+def phase_scale(dev, card):
+    """One rank under NCCL (the slice, the check against rbcpf_step, two
+    scenes, times), then two gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    comm = comm_mod.init_process_group(SCALE_BACKEND, 0, 1,
+                                       comm_mod.free_port(),
+                                       SCALE_GROUP_TIMEOUT_S, device=dev)
+    try:
+        (tracker, traj, source, step, belief, launches, rmse,
+         paths) = scale_track(dev, comm)
+        versus = scale_against_rbcpf(dev, comm, tracker, traj, source,
+                                     belief)
+        times = scale_times(dev, step, belief, tracker, source, traj)
+        del tracker, belief, step
+        scene_rmse = scale_scenes(dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    one_rank_s = time.perf_counter() - t0
+    ranks, two_s = scale_two_ranks(dev)
+    emit({"phase": "scale", "nvidia_smi": card,
+          "one_rank": {"backend": SCALE_BACKEND, "world": 1,
+                       "particles": P, "frames": FRAMES,
+                       "position_rmse_m": rmse, "paths": paths,
+                       "launches": launches,
+                       "against_rbcpf_step": versus,
+                       "scene_position_rmse_m": scene_rmse,
+                       "step_ms_median": times["step"],
+                       "track_ms_median": times["track"],
+                       "seconds": one_rank_s},
+          "two_ranks": {"transport": "gloo, staged through pinned host "
+                                     "memory, both ranks on one card",
+                        "world": SCALE_RANKS, "particles_per_rank":
+                        P // SCALE_RANKS, "capacity":
+                        dist_filter.counts_capacity(P // SCALE_RANKS),
+                        "seconds": two_s, "ranks": ranks}})
+    return launches
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -1593,13 +2063,17 @@ def main():
     phase_cli(dev, kind="gaussian")
     phase_deferred(dev)
     live_launches = phase_live(dev, card)
+    scale_launches = phase_scale(dev, card)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "live_launches": live_launches[name],
+         "scale_launches": scale_launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
-         "cold_ms": kres[name].get("cold_ms")}
+         "cold_ms": kres[name].get("cold_ms"),
+         **({"two_widths": kres[name]["two_widths"]}
+            if "two_widths" in kres[name] else {})}
         for name, (src, rep) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,14 @@
 //
 // Replaces the Pallas kernel `lineage_gather_pallas` (dbot_ros_tpu/ops/
 // raycast_pallas.py:430): after resampling, every pixel row of the
-// (n_rows, p_pad) map is re-indexed along the particle axis,
-//   out[n, c] = q[n, idx[c]]        for every row n and column c,
-// out of place (the old map is read while the new one is written).
+// (n_rows, p_in) map is re-indexed along the particle axis,
+//   out[n, c] = q[n, clamp(idx[c], 0, p_in - 1)]   for every row n and
+//                                                   column c < p_out,
+// out of place (the old map is read while the new one is written). The
+// source and the output may differ in width: the distributed exchanges
+// (dbot_ros_tpu_torch/parallel/dist_filter.py) gather C surplus columns
+// out of a p_pad(L)-column map, and a p_pad(L)-column map out of a
+// concatenation of received blocks. On one card p_in == p_out.
 // The TPU kernel routed 128-lane groups through one-hot matrices on its
 // matrix unit and only worked when each group drew from at most two
 // source groups. None of that is carried over: this kernel is exact for
@@ -60,9 +65,11 @@
 //   4. A tile whose window spans more than kMaxChunks chunks, or needs
 //      more bytes per row than half the ring, reads its elements straight
 //      from global memory (scattered parents at a very large p_pad).
-// Indices are clamped into [0, p_pad) in the kernel, so a bad index can
-// not read outside the map. The wrapper checks that rows are multiples of
-// 16 bytes and the pointers 16-byte aligned.
+// Indices are clamped into [0, p_in) in the kernel, so a bad index can
+// not read outside the map. The window, chunk marks and bulk copies work
+// in source coordinates (row stride and clamp p_in); the column tiles and
+// stores in output coordinates (p_out). The wrapper checks that rows of
+// both widths are multiples of 16 bytes and the pointers 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -130,8 +137,8 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 template <typename T>
 __global__ void __launch_bounds__(kBlock, 2)
 lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
-                      T* __restrict__ out, int n_rows, int p_pad,
-                      int col_tiles, int vecs_per_tile) {
+                      T* __restrict__ out, int n_rows, int p_in,
+                      int p_out, int col_tiles, int vecs_per_tile) {
   constexpr int kVec = 16 / sizeof(T);    // elements per 16-byte vector
   constexpr int kChunkElems = kChunkBytes / sizeof(T);
   extern __shared__ __align__(128) unsigned char ring[];
@@ -151,7 +158,7 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
   const bool picker = tid < kThreads;     // the last warp only copies
   const int col_tile = blockIdx.x % col_tiles;
   const int row_block = blockIdx.x / col_tiles;
-  const int n_vecs = p_pad / kVec;        // p_pad is a multiple of kVec
+  const int n_vecs = p_out / kVec;        // p_out is a multiple of kVec
   const int v0 = col_tile * vecs_per_tile;
   const int v_end = min(v0 + vecs_per_tile, n_vecs);
   // Rows are dealt to the blocks in turn (this one takes row_block,
@@ -160,7 +167,8 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
   // row_blocks distant streams.
   const int row_blocks = gridDim.x / col_tiles;
   const int my_rows = (n_rows - row_block + row_blocks - 1) / row_blocks;
-  const size_t stride = static_cast<size_t>(p_pad);
+  const size_t stride_in = static_cast<size_t>(p_in);
+  const size_t stride_out = static_cast<size_t>(p_out);
   if (v0 >= v_end || my_rows <= 0) return;  // block-uniform
 
   // --- once per block: indices, their window, the needed chunks
@@ -175,7 +183,7 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
       const int s =
-          active[i] ? min(max(idx[v * kVec + k], 0), p_pad - 1) : 0;
+          active[i] ? min(max(idx[v * kVec + k], 0), p_in - 1) : 0;
       src[i][k] = s;
       if (active[i]) {
         lo = min(lo, s);
@@ -207,7 +215,7 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
     lo = min(lo, red_lo[w]);
     hi = max(hi, red_hi[w]);
   }
-  // thread 0 of every block is active, so lo <= hi < p_pad here
+  // thread 0 of every block is active, so lo <= hi < p_in here
   const int lo_a = lo / kVec * kVec;      // 16-byte aligned window start
   const int span_chunks = (hi - lo_a) / kChunkElems + 1;
   bool staged = span_chunks <= kMaxChunks;
@@ -230,7 +238,7 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
       // the count of needed chunks before it; a run starts at a needed
       // chunk whose predecessor is not needed, and ends where the next
       // run starts (the staged row has no gaps).
-      const int window_bytes = (p_pad - lo_a) * static_cast<int>(sizeof(T));
+      const int window_bytes = (p_in - lo_a) * static_cast<int>(sizeof(T));
       const unsigned below = (1u << tid) - 1u;
       int chunks_before = 0;
       int runs = 0;
@@ -293,7 +301,7 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
     const int n_groups = (my_rows + rows_per_stage - 1) / rows_per_stage;
     const unsigned char* window =
         reinterpret_cast<const unsigned char*>(q + lo_a);
-    const size_t row_bytes = stride * sizeof(T);
+    const size_t row_bytes = stride_in * sizeof(T);
 
     if (!picker) {
       // the copying warp: fills stage (group % n_stages) with the rows of
@@ -334,7 +342,8 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
             ring + static_cast<size_t>(stage) * stage_bytes;
         for (int rr = 0; rr < cnt; ++rr) {
           const T* w = reinterpret_cast<const T*>(base + rr * need_bytes);
-          T* out_row = out + (row_block + (l0 + rr) * row_blocks) * stride;
+          T* out_row =
+              out + (row_block + (l0 + rr) * row_blocks) * stride_out;
 #pragma unroll
           for (int i = 0; i < kVpt; ++i) {
             if (active[i]) {
@@ -357,8 +366,8 @@ lineage_gather_kernel(const T* __restrict__ q, const int* __restrict__ idx,
   } else if (picker) {
     for (int l = 0; l < my_rows; ++l) {
       const size_t r = row_block + l * row_blocks;
-      const T* row = q + r * stride;
-      T* out_row = out + r * stride;
+      const T* row = q + r * stride_in;
+      T* out_row = out + r * stride_out;
 #pragma unroll
       for (int i = 0; i < kVpt; ++i) {
         if (active[i]) {
@@ -380,10 +389,11 @@ constexpr int kMaxDevices = 64;
 
 
 template <typename T>
-int launch(const void* q, const void* idx, void* out, int n_rows, int p_pad,
-           void* stream) {
+int launch(const void* q, const void* idx, void* out, int n_rows, int p_in,
+           int p_out, void* stream) {
   constexpr int kVec = 16 / sizeof(T);
-  if (n_rows <= 0 || p_pad <= 0 || p_pad % kVec != 0) {
+  if (n_rows <= 0 || p_in <= 0 || p_in % kVec != 0 || p_out <= 0 ||
+      p_out % kVec != 0) {
     return cudaErrorInvalidValue;
   }
   // per device, once: its SM count, and leave for the ring's size
@@ -406,7 +416,7 @@ int launch(const void* q, const void* idx, void* out, int n_rows, int p_pad,
   const int sms = sm_count[dev];
   // column tiles of equal width, as few as the threads' registers allow;
   // row ranges so that about two blocks per SM share the rows
-  const int n_vecs = p_pad / kVec;
+  const int n_vecs = p_out / kVec;
   const int col_tiles = (n_vecs + kThreads * kVpt - 1) / (kThreads * kVpt);
   const int vecs_per_tile = (n_vecs + col_tiles - 1) / col_tiles;
   const int row_blocks_wanted =
@@ -423,7 +433,7 @@ int launch(const void* q, const void* idx, void* out, int n_rows, int p_pad,
   lineage_gather_kernel<T><<<static_cast<unsigned>(blocks), kBlock,
                              kRingBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const int*>(idx),
-      static_cast<T*>(out), n_rows, p_pad, col_tiles, vecs_per_tile);
+      static_cast<T*>(out), n_rows, p_in, p_out, col_tiles, vecs_per_tile);
   return cudaGetLastError();
 }
 
@@ -432,15 +442,16 @@ int launch(const void* q, const void* idx, void* out, int n_rows, int p_pad,
 extern "C" {
 
 // Both return cudaGetLastError() after the launch (0 = success).
-// q, out: (n_rows, p_pad) row-major, distinct buffers; idx: (p_pad,) int32.
+// q: (n_rows, p_in), out: (n_rows, p_out), row-major, distinct buffers;
+// idx: (p_out,) int32.
 int dbot_lineage_gather_b16(const void* q, const void* idx, void* out,
-                            int n_rows, int p_pad, void* stream) {
-  return launch<uint16_t>(q, idx, out, n_rows, p_pad, stream);
+                            int n_rows, int p_in, int p_out, void* stream) {
+  return launch<uint16_t>(q, idx, out, n_rows, p_in, p_out, stream);
 }
 
 int dbot_lineage_gather_b32(const void* q, const void* idx, void* out,
-                            int n_rows, int p_pad, void* stream) {
-  return launch<uint32_t>(q, idx, out, n_rows, p_pad, stream);
+                            int n_rows, int p_in, int p_out, void* stream) {
+  return launch<uint32_t>(q, idx, out, n_rows, p_in, p_out, stream);
 }
 
 }  // extern "C"

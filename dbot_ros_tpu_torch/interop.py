@@ -118,6 +118,48 @@ def belief_from_numpy(states, log_weights, occlusion, num_pixels: int,
                                      device))
 
 
+def distributed_belief_from_jax(states, log_weights, occlusion, rank: int,
+                                size: int, num_pixels: int, nb: int = 64,
+                                age=None, occ_dtype=torch.float32,
+                                device=None) -> ParticleBelief:
+    """Rank ``rank``'s block of a belief of the JAX package's distributed
+    filter over ``size`` shards (its leaves as numpy arrays).
+
+    ``states`` (P, K, 13) and ``log_weights`` (P,) are the global leaves;
+    the rank takes rows ``[rank·L, (rank+1)·L)`` with ``L = P / size``.
+    The occlusion leaf is either the (P, N) map (rows split the same way)
+    or the fused sensor's kernel layout, which the JAX package keeps as
+    the concatenation of the ``size`` local kernel-layout blocks along
+    axis 0 (dist_filter.py:146-147); the lazy ``age`` leaf is
+    concatenated alike. The rank's block goes through
+    :func:`occlusion_from_jax`.
+    """
+    states = np.asarray(states)
+    P = states.shape[0]
+    if P % size:
+        raise ValueError(f"{P} particles do not split over {size} ranks")
+    L = P // size
+    rows = slice(rank * L, (rank + 1) * L)
+    occ = np.asarray(occlusion)
+    if occ.shape == (P, num_pixels):
+        block = occ[rows]
+    else:
+        if occ.shape[0] % size:
+            raise ValueError(f"occlusion leaf {occ.shape} does not split "
+                             f"over {size} ranks")
+        n = occ.shape[0] // size
+        block = occ[rank * n:(rank + 1) * n]
+    if age is not None:
+        age = np.asarray(age)
+        na = age.shape[0] // size
+        age = age[rank * na:(rank + 1) * na]
+    return ParticleBelief(
+        states=_tensor(states[rows], device),
+        log_weights=_tensor(np.asarray(log_weights)[rows], device),
+        occlusion=occlusion_from_jax(block, L, num_pixels, nb, age,
+                                     occ_dtype, device))
+
+
 def gaussian_belief_from_numpy(mean, cov, background, occ_prior=None,
                                device=None) -> GaussianBelief:
     """A GaussianBelief from the JAX belief's leaves (its key, kept there

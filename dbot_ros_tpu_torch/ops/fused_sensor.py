@@ -236,7 +236,6 @@ class FusedSensor:
     so that its configs keep loading; both are the same function here
     (``kernels.lineage_gather``). Not ported: the TPU-only ``"grouped"``
     and ``"windowed"`` modes, ``merge="select"`` (only ``"scatter"``),
-    the distributed-exchange hooks (``concat_occlusion``, ``where_occlusion``, ``particle_stride``),
     and the reference's experiment options ``active_cap_frac``,
     ``tri_cap_frac``, a fixed ``bary_slack`` and ``reference_poses``.
     """
@@ -306,20 +305,63 @@ class FusedSensor:
             return occ[0], occ[1]
         return occ, None
 
-    def gather_occlusion(self, occ, parent_idx):
-        """Particle-lineage gather ``out[n, p'] = q[n, idx[p']]`` on the map
-        (resampling), through ``kernels.lineage_gather``. Padding
-        particles keep their own columns; indices are clamped into range.
-        Ages are per pixel and do not move. The result is a new map; the
-        input map is left as it was."""
+    def particle_stride(self, num_particles: int) -> int:
+        """Columns of one ``num_particles`` block: the index stride inside
+        a :meth:`concat_occlusion` result and the ``num_in`` unit of a
+        gather from one (the port's 128-column rounding)."""
+        return particle_pad(num_particles)
+
+    def gather_occlusion(self, occ, parent_idx, num_in=None):
+        """Particle-lineage gather ``out[n, c] = q[n, idx[c]]`` on the map
+        (resampling), through ``kernels.lineage_gather``. The output has
+        ``particle_pad(len(parent_idx))`` columns; indices are clamped
+        into the source. Ages are per pixel and do not move. The result
+        is a new map; the input map is left as it was.
+
+        ``num_in`` is the source's column count when it is not the
+        sensor's own map of ``len(parent_idx)`` particles (the
+        distributed exchanges' surplus buffers and concatenated blocks);
+        it must equal ``q.shape[1]``. Output padding columns then take
+        ``min(c, num_in - 1)``, as the reference's ``pad_idx``; without
+        ``num_in`` they keep their own columns.
+        """
         q, age = self._unpack_occ(occ)
-        p_pad = q.shape[1]
-        idx = torch.cat([
-            parent_idx.to(torch.int32),
-            torch.arange(parent_idx.shape[0], p_pad, dtype=torch.int32,
-                         device=q.device)]).clamp_(0, p_pad - 1)
+        p_in = q.shape[1]
+        if num_in is not None and int(num_in) != p_in:
+            raise ValueError(f"num_in={num_in} but the source has {p_in} "
+                             "columns")
+        p = parent_idx.shape[0]
+        pad = torch.arange(p, particle_pad(p), dtype=torch.int32,
+                           device=q.device)
+        idx = torch.cat([parent_idx.to(torch.int32), pad]).clamp_(0, p_in - 1)
         out = kernels.lineage_gather(q, idx)
         return out if age is None else (out, age)
+
+    def concat_occlusion(self, blocks, num_each):
+        """Concatenate maps of ``num_each`` particles each along the
+        particle (column) axis; block ``s`` starts at column
+        ``s * particle_stride(num_each)``. The ages are those of the first
+        block, as in the reference (see ROADMAP.md §C on ages that differ
+        between ranks)."""
+        qs = [self._unpack_occ(b)[0] for b in blocks]
+        stride = self.particle_stride(num_each)
+        if any(q.shape[1] != stride for q in qs):
+            raise ValueError(f"blocks must have {stride} columns, got "
+                             f"{[q.shape[1] for q in qs]}")
+        out = torch.cat(qs, dim=1)
+        age = self._unpack_occ(blocks[0])[1]
+        return out if age is None else (out, age)
+
+    def where_occlusion(self, particle_mask, a, b):
+        """Per-particle select between two maps: column ``p`` from ``a``
+        where ``particle_mask[p]``, else from ``b``; padding columns take
+        ``b``. The ages are those of ``a``, as in the reference."""
+        qa, age_a = self._unpack_occ(a)
+        qb, _ = self._unpack_occ(b)
+        m = torch.zeros((qa.shape[1],), dtype=torch.bool, device=qa.device)
+        m[:particle_mask.shape[0]] = particle_mask
+        out = torch.where(m[None, :], qa, qb)
+        return out if age_a is None else (out, age_a)
 
     def occlusion_as_pn(self, occ, num_particles):
         """The occlusion state as (P, N) float32, materialized to 'now'

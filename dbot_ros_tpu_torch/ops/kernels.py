@@ -25,7 +25,9 @@ Dispatch: a tensor on the CPU goes to the plain version (``*_plain``); a
 CUDA tensor launches the kernel, or raises on a wrong dtype, shape,
 device or contiguity. There is no fallback from the CUDA path. Each
 wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
-int, never reset here), so a run can show it went through the kernel.
+int, never reset here), so a run can show it went through the kernel;
+``lineage_gather.two_width_launches`` counts again the launches whose
+source and output differ in width (the distributed exchanges).
 The sources' headers say what bounds each kernel on the card.
 """
 
@@ -291,45 +293,54 @@ scatter_pixel_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 def lineage_gather_plain(q, idx):
-    """``out[n, c] = q[n, idx[c]]`` (plain PyTorch version)."""
-    return q.index_select(1, idx.long())
+    """``out[n, c] = q[n, clamp(idx[c], 0, p_in - 1)]`` for ``q`` of shape
+    ``(n_rows, p_in)`` and ``idx`` of ``(p_out,)``, any two widths (plain
+    PyTorch version)."""
+    return q.index_select(1, idx.long().clamp(0, q.shape[1] - 1))
 
 
 def lineage_gather(q, idx):
-    """Resampling lineage gather ``out[n, c] = q[n, idx[c]]`` on the
-    ``(n_pad, p_pad)`` map, exact for any ``idx`` (sorted or not).
+    """Resampling lineage gather ``out[n, c] = q[n, idx[c]]``: ``q`` is
+    ``(n_rows, p_in)``, ``idx`` ``(p_out,)``, the result ``(n_rows,
+    p_out)``, exact for any ``idx`` (sorted or not).
 
-    ``idx`` has one entry per column of ``q``, each in ``[0, p_pad)``
-    (the caller clamps; the kernel clamps again rather than read outside
-    the map). On CUDA: ``q`` is bfloat16 or float32, contiguous, with
-    16-byte rows; ``idx`` is int32 (convert the resampler's int64 parents
-    once per call). Out of place: the result is a new buffer the size of
-    the map, owned by the caller; ``q`` is only read and is freed when
-    the caller drops the old belief. No other scratch: the kernel stages
+    On one card ``p_out == p_in`` (the map's own ``p_pad``); the
+    distributed exchanges gather from a source of another width (surplus
+    buffers, concatenated blocks). Indices are clamped into ``[0, p_in)``,
+    by the kernel too, so it never reads outside the source. On CUDA:
+    ``q`` is bfloat16 or float32, contiguous, with rows of both widths
+    16-byte multiples; ``idx`` is int32 (convert the resampler's int64
+    parents once per call). Out of place: the result is a new buffer owned
+    by the caller; ``q`` is only read. No other scratch: the kernel stages
     rows in shared memory.
     """
     if not q.is_cuda:
         return lineage_gather_plain(q, idx)
     _check("q", q, (torch.bfloat16, torch.float32), 2, q.device)
     _check("idx", idx, (torch.int32,), 1, q.device)
-    n_rows, p_pad = q.shape
-    if idx.shape[0] != p_pad:
-        raise ValueError(f"idx must have one entry per column of q "
-                         f"({p_pad}), got {idx.shape[0]}")
-    if (p_pad * q.element_size()) % 16 or q.data_ptr() % 16:
-        raise ValueError("rows of q must be 16-byte multiples and aligned "
-                         f"(row of {p_pad * q.element_size()} B)")
-    out = torch.empty_like(q)
-    if n_rows == 0 or p_pad == 0:
+    n_rows, p_in = q.shape
+    p_out = idx.shape[0]
+    elem = q.element_size()
+    if (p_in * elem) % 16 or (p_out * elem) % 16 or q.data_ptr() % 16:
+        raise ValueError("rows of q and of the output must be 16-byte "
+                         f"multiples and aligned (rows of {p_in * elem} "
+                         f"and {p_out * elem} B)")
+    out = torch.empty((n_rows, p_out), dtype=q.dtype, device=q.device)
+    if n_rows == 0 or p_out == 0:
         return out
     lib = _lib()
-    entry = (lib.dbot_lineage_gather_b16 if q.element_size() == 2
+    entry = (lib.dbot_lineage_gather_b16 if elem == 2
              else lib.dbot_lineage_gather_b32)
-    err = entry(q.data_ptr(), idx.data_ptr(), out.data_ptr(), n_rows, p_pad,
-                _stream(q))
+    err = entry(q.data_ptr(), idx.data_ptr(), out.data_ptr(), n_rows, p_in,
+                p_out, _stream(q))
     lineage_gather.launches += 1
+    if p_in != p_out:
+        lineage_gather.two_width_launches += 1
     _raise_on(err, "lineage_gather launch")
     return out
 
 
 lineage_gather.launches = 0
+# launches with a source and an output of different widths (the
+# distributed exchanges), counted again here
+lineage_gather.two_width_launches = 0

@@ -224,6 +224,29 @@ def test_lineage_gather_tile_edges(cuda, dtype, rows, P, p_pad, kind):
     assert torch.equal(out, kernels.lineage_gather_plain(q, idx))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p_in,p_out", [
+    (5120, 640),      # a counts surplus buffer out of a rank's map
+    (640, 5120),      # a rank's map out of one received buffer
+    (10240, 5120),    # out of the concatenation of two blocks
+    (128, 384),       # an output wider than the source, indices clamped
+], ids=["buffer", "receive", "concat", "clamped"])
+def test_lineage_gather_two_widths(cuda, dtype, p_in, p_out):
+    """Source and output of different widths, bit-exact against the
+    plain version, with sorted parents, runs of one parent and indices
+    past the source (clamped to its last column)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.rand((97, p_in), generator=g, device=cuda).to(dtype)
+    idx = torch.sort(torch.randint(0, p_in + 50, (p_out,), generator=g,
+                                   device=cuda)).values
+    idx[: p_out // 4] = 3
+    idx = idx.to(torch.int32)
+    out = kernels.lineage_gather(q, idx)
+    torch.cuda.synchronize()
+    assert out.shape == (97, p_out)
+    assert torch.equal(out, kernels.lineage_gather_plain(q, idx))
+
+
 def test_pixel_rows_match_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.rand((1216, 384), generator=g, device=cuda).to(torch.bfloat16)
@@ -279,8 +302,10 @@ def test_lineage_gather_matches_plain_and_checks_its_arguments(cuda):
         kernels.lineage_gather(q.to(torch.float16), idx)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.lineage_gather(q.T, idx[:64])
-    with pytest.raises(ValueError, match="one entry per column"):
-        kernels.lineage_gather(q, idx[:128])
+    # an output narrower than the source is a two-width gather now
+    half = kernels.lineage_gather(q, idx[:128])
+    assert half.shape == (64, 128)
+    assert torch.equal(half, kernels.lineage_gather_plain(q, idx[:128]))
     with pytest.raises(ValueError):                 # idx on another device
         kernels.lineage_gather(q, idx.cpu())
     with pytest.raises(ValueError, match="16-byte"):

@@ -302,17 +302,26 @@ def test_interop_occlusion_layouts_agree():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port and chip_smoke.py load, and a tracker
-    runs a step on the CPU, without ``jax`` and without anything of the
-    JAX package (``dbot_ros_tpu``): checked in a fresh interpreter's
-    ``sys.modules``, and in the sources."""
+    """Every module of the port, chip_smoke.py and the multi-rank tests'
+    worker (tests/test_torch_dist_worker.py) load, and a tracker runs a
+    step on the CPU, without ``jax`` and without anything of the JAX
+    package (``dbot_ros_tpu``): in a fresh interpreter where importing
+    either raises, checked again in its ``sys.modules``, and in the
+    sources."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dbot_ros_tpu'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import chip_smoke\n"
+        "import tests.test_torch_dist_worker\n"
         "import dbot_ros_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    dbot_ros_tpu_torch.__path__, 'dbot_ros_tpu_torch.')]\n"
         "assert len(names) > 30, names\n"
+        "assert 'dbot_ros_tpu_torch.parallel.dist_filter' in names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "from dbot_ros_tpu_torch import config as cfg\n"
@@ -340,7 +349,8 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("no jax")
     sources_ = list((REPO / "dbot_ros_tpu_torch").rglob("*.py"))
-    sources_.append(REPO / "chip_smoke.py")
+    sources_ += [REPO / "chip_smoke.py",
+                 REPO / "tests" / "test_torch_dist_worker.py"]
     banned = ("jax", "jaxlib", "dbot_ros_tpu")
     for path in sources_:
         for line in path.read_text().splitlines():
