@@ -11,7 +11,9 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    version at the main path's shapes (10,000 particles, 448 selected
    pixels, 2 candidates, 288 packed triangles; the full 4800-pixel map),
    with the tolerances stated below, and times both with CUDA events:
-   device time per call (CUDA-graph replay) and time per call from
+   device time per call (CUDA-graph replay; a call under 0.05 ms is
+   captured 64 times in one graph and the replay divided by 64, since
+   a replay alone costs 0.004-0.0075 ms) and time per call from
    Python. The fused kernel is also held to its plain version, and
    timed, on a candidate table in which no pixel shares a slab with a
    neighbour, on one in which every pixel misses, at the ladder's second
@@ -20,9 +22,13 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    on the same inputs (the same bits). The lineage gather runs on four
    parent vectors (systematic parents of a real step's weights, one
    parent for all, the identity, a random permutation) in bfloat16 and
-   once in float32, bit-exact. Both
-   are also timed cold: over copies of their inputs that together exceed
-   the L2 cache, taken in turns; a device copy and a fill of the map are
+   once in float32, bit-exact. The row kernels run at the ladder's tight
+   and second level (448 and 2,432 rows), the gather also on ``sel``
+   with duplicates, out of range (clamped by both versions) and in
+   float32, bit-exact. Every kernel is also timed cold: over copies of
+   its inputs so many that a round touches at least twice the L2 cache,
+   outputs included, with the library call on the same copies in turns
+   (``library_cold_ms``); a device copy and a fill of the map are
    timed beside the lineage gather as yardsticks. Each kernel's bound
    (the least time the card could take: bytes over the memory rate,
    operations over the float32 rate) is computed from the run's inputs,
@@ -129,6 +135,15 @@ before that path and read just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+
+``python3 chip_smoke.py --compare`` runs only what a comparison of two
+commits reads: the device and build phases, the row kernels (``rows``:
+the kernels phase's gather and scatter readings at both levels, without
+the out-of-range gather) and the slice (``track`` median). To compare
+with a parent commit, unpack it with ``git archive`` into a git-ignored
+directory, copy this file over its own, and run ``--compare`` in both
+trees in turns (parent, change, change, parent), one after another on
+the same card.
 """
 
 import contextlib
@@ -180,8 +195,14 @@ OCC_ULPS = 1
 # float32 maps: the same operations; expf/logf of the two may differ in
 # the last place
 OCC_F32_ATOL = 1e-6
-# cold timings run over this many copies of a kernel's inputs
-COLD_COPIES = 4
+# a CUDA-graph replay costs 0.004-0.0075 ms however small its work
+# (graph_replay_floor_ms): a call that reads under SMALL_MS alone is timed
+# CALLS_PER_GRAPH times in one graph and the replay divided by that count
+CALLS_PER_GRAPH = 64
+SMALL_MS = 0.05
+# cold timings rotate over copies of a call's inputs that together, with
+# the outputs, touch at least this many times the card's L2 cache a round
+COLD_L2_FACTOR = 2
 # lineage_gather.cu's tiling (kThreads * kVpt vectors of 16 bytes per
 # column tile, 512-byte chunks, at most 256 of them, a 96 KB ring)
 LINEAGE_TILE_VECS, LINEAGE_CHUNK = 480 * 3, 512
@@ -275,33 +296,96 @@ def _events_ms(run, count):
     return start.elapsed_time(end) / count
 
 
-def device_ms(fn, warmup=WARMUP, replays=GRAPH_REPLAYS, runs=TIMING_RUNS):
-    """Median device time of one call of ``fn``: the call is captured once
-    in a CUDA graph and replayed back to back between CUDA events, so the
-    host's launch cost is not counted."""
+def device_reading(fn, warmup=WARMUP, replays=GRAPH_REPLAYS,
+                   runs=TIMING_RUNS, calls=None):
+    """(ms, calls): the median device time of one call of ``fn`` from
+    CUDA-graph replays between CUDA events (the host's launch cost is not
+    counted), and how many calls one graph held. A replay costs
+    0.004-0.0075 ms however small its work, so a call that reads under
+    ``SMALL_MS`` alone is captured ``CALLS_PER_GRAPH`` times into one
+    graph and the replay's time divided by that count; ``calls`` fixes
+    the count instead."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    return statistics.median(_events_ms(graph.replay, replays)
-                             for _ in range(runs))
+
+    def graph_of(n):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        return graph
+
+    graph = graph_of(calls or 1)
+    if calls is None:
+        probe = statistics.median(_events_ms(graph.replay, replays)
+                                  for _ in range(3))
+        calls = CALLS_PER_GRAPH if probe < SMALL_MS else 1
+        if calls > 1:
+            del graph
+            graph = graph_of(calls)
+    ms = statistics.median(_events_ms(graph.replay, replays)
+                           for _ in range(runs))
+    return ms / calls, calls
+
+
+def device_ms(fn, **kw):
+    """The time of :func:`device_reading` alone."""
+    return device_reading(fn, **kw)[0]
+
+
+def l2_bytes():
+    return torch.cuda.get_device_properties(0).L2_cache_size
+
+
+def cold_copies(bytes_per_call):
+    """How many copies of a call's inputs make a round that touches at
+    least ``COLD_L2_FACTOR`` times the L2 cache (two at the least)."""
+    return max(2, -(-COLD_L2_FACTOR * l2_bytes() // bytes_per_call))
 
 
 def cold_device_ms(fns):
-    """Device time of one call with its inputs cold: ``fns`` are the same
-    call on copies of its inputs that together exceed the L2 cache; one
-    graph runs them in turn, so each finds its inputs evicted by the
-    others'. The time of the round over the number of calls."""
-    def round_():
-        for fn in fns:
-            fn()
-    return device_ms(round_) / len(fns)
+    """Device time of one call with what it reads and writes cold.
+    ``fns`` are the same call on copies of its inputs, so many that a
+    round over them touches at least twice the L2 cache
+    (:func:`cold_copies`: bytes read and written per call, outputs
+    included). One graph holds rounds over them, ``CALLS_PER_GRAPH``
+    calls at the least; each call's output is kept to the end of its
+    round, so the calls of a round write buffers of their own, and each
+    call finds its inputs and its output evicted by the other copies'
+    traffic since its last turn. Copies and not a flush between calls
+    (a scratch write whose own time is subtracted): the copies keep the
+    graph free of anything but the call. The time of a replay over the
+    number of calls."""
+    rounds = -(-CALLS_PER_GRAPH // len(fns))
+
+    def run():
+        for _ in range(rounds):
+            outs = [fn() for fn in fns]
+            del outs
+
+    return device_ms(run, calls=1) / (rounds * len(fns))
+
+
+def in_turns(named, reading):
+    """``reading(x)`` for every ``x`` of the dict ``named``, in turns (its
+    order, then the reverse: plain, kernel, kernel, plain for two), and
+    averaged per name."""
+    out = {k: [] for k in named}
+    for k in list(named) + list(reversed(named)):
+        out[k].append(reading(named[k]))
+    return {k: statistics.mean(v) for k, v in out.items()}
+
+
+def cold_pair(kernel_fns, library_fns):
+    """Cold device times of the kernel and of the library call that
+    computes the same function, on the same copies, in turns."""
+    return in_turns({"library_cold_ms": library_fns,
+                     "cold_ms": kernel_fns}, cold_device_ms)
 
 
 def call_ms(fn):
@@ -320,13 +404,18 @@ def time_pair(plain, kernel, library=None):
     else None)."""
     out = {"ms": [], "plain_ms": [], "call_ms": [], "plain_call_ms": [],
            "library_ms": []}
+    calls = {}
     for pre, fn in (("plain_", plain), ("", kernel), ("", kernel),
                     ("plain_", plain)):
-        out[pre + "ms"].append(device_ms(fn))
+        ms, calls[pre + "ms"] = device_reading(fn)
+        out[pre + "ms"].append(ms)
         out[pre + "call_ms"].append(call_ms(fn))
         if library is not None:
-            out["library_ms"].append(device_ms(library))
-    return {k: statistics.mean(v) if v else None for k, v in out.items()}
+            ms, calls["library_ms"] = device_reading(library)
+            out["library_ms"].append(ms)
+    res = {k: statistics.mean(v) if v else None for k, v in out.items()}
+    res["calls_per_graph"] = calls
+    return res
 
 
 def roofline(bytes_moved, flops=0):
@@ -543,69 +632,191 @@ def phase_kernels(dev):
         lambda: kernels.fused_loglik_plain(*args),
         lambda: kernels.fused_loglik(*args)))
     fused.update(fused_bound(args))
-    # cold: copies of the inputs (slabs named + map rows: ~38 MB each)
-    copies = [tuple(a.clone() for a in args) for _ in range(COLD_COPIES)]
+    # cold: copies of the inputs (slabs named + map rows: ~47 MB a call)
+    copies = [args] + [tuple(a.clone() for a in args)
+                       for _ in range(cold_copies(fused["bytes"]) - 1)]
     fused["cold_ms"] = cold_device_ms(
         [lambda c=c: kernels.fused_loglik(*c) for c in copies])
+    fused["cold_copies"] = len(copies)
     del copies
     fused_more = fused_other_shapes(dev, sensor, cam, mesh, args, g)
 
     n_pad = fs._round_up(N, sensor.nb)
     q = torch.rand((n_pad, p_pad), generator=g,
                    device=dev).to(torch.bfloat16)
-    sel32 = sel.to(torch.int32).contiguous()
-    check(sel32.unique().numel() == sel32.numel(), "sel not distinct")
-    rows_k = kernels.gather_pixel_rows(q, sel32)
-    rows_p = kernels.gather_pixel_rows_plain(q, sel32)
-    check(torch.equal(rows_k, rows_p), "gather_pixel_rows differs")
-    out["gather_pixel_rows"] = {"max_abs_err": 0.0}
-    sel64 = sel32.long()
-    out["gather_pixel_rows"].update(time_pair(
-        lambda: kernels.gather_pixel_rows_plain(q, sel32),
-        lambda: kernels.gather_pixel_rows(q, sel32),
-        library=lambda: q.index_select(0, sel64)))
-    out["gather_pixel_rows"].update(roofline(2 * nbytes(rows_k)
-                                          + nbytes(sel32)))
-    # cold: copies of the map (97 MB each) taken in turns
-    maps = [q.clone() for _ in range(COLD_COPIES)]
-    out["gather_pixel_rows"]["cold_ms"] = cold_device_ms(
-        [lambda m=m: kernels.gather_pixel_rows(m, sel32) for m in maps])
-
-    vals = occ_k
-    q_k, q_p = q.clone(), q.clone()
-    kernels.scatter_pixel_rows(q_k, vals, sel32)
-    kernels.scatter_pixel_rows_plain(q_p, vals, sel32)
-    check(torch.equal(q_k, q_p), "scatter_pixel_rows differs")
-    out["scatter_pixel_rows"] = {"max_abs_err": 0.0}
-    out["scatter_pixel_rows"].update(time_pair(
-        lambda: kernels.scatter_pixel_rows_plain(q_p, vals, sel32),
-        lambda: kernels.scatter_pixel_rows(q_k, vals, sel32),
-        library=lambda: q_p.index_copy_(0, sel64, vals)))
-    out["scatter_pixel_rows"].update(roofline(2 * nbytes(vals)
-                                           + nbytes(sel32)))
-    rows = [vals.clone() for _ in range(COLD_COPIES)]
-    out["scatter_pixel_rows"]["cold_ms"] = cold_device_ms(
-        [lambda m=m, r=r: kernels.scatter_pixel_rows(m, r, sel32)
-         for m, r in zip(maps, rows)])
-    del q_k, q_p, maps, rows
+    rows = row_results(dev, sensor, cam, mesh, q, g, sel_tight=sel)
+    for name, levels in rows.items():
+        out[name] = dict(levels["tight"], second_level=levels["second"])
 
     out["lineage_gather"], lineage, real = lineage_results(dev, q, g)
     out["lineage_gather"]["two_widths"] = lineage_two_widths(dev, real, g)
-    # what device_ms reads for a kernel that does next to nothing: every
-    # time above includes it
+    # what one graph replay costs for a kernel that does next to nothing,
+    # and what such a kernel costs a call among CALLS_PER_GRAPH in a graph
     tiny = torch.zeros((1024,), device=dev)
-    replay_floor = device_ms(lambda: tiny.add_(1.0))
+    replay_floor = device_ms(lambda: tiny.add_(1.0), calls=1)
+    floor_in_graph = device_ms(lambda: tiny.add_(1.0),
+                               calls=CALLS_PER_GRAPH)
     emit({"phase": "kernels", "shapes": shapes,
           "graph_replay_floor_ms": replay_floor,
+          "tiny_kernel_ms_in_graph": floor_in_graph,
+          "calls_per_graph": CALLS_PER_GRAPH, "small_ms": SMALL_MS,
+          "l2_bytes": l2_bytes(), "cold_l2_factor": COLD_L2_FACTOR,
           "n_active": info["n_active"], "n_uniq": info["n_uniq"],
           "tolerance": {
               "loglik": f"|d| <= {LL_RTOL}*|ll| + {LL_ATOL_PER_PIXEL}*n",
               "occ": f"<= {OCC_ULPS} bf16 ulp, {OCC_F32_ATOL} in float32",
-              "fused_twice": "bit-identical", "rows": "bit-exact",
+              "fused_twice": "bit-identical",
+              "rows": "bit-exact; the gather also on sel with duplicates "
+                      "and out of range (clamped), and in float32",
               "lineage": "bit-exact", "lineage_two_widths": "bit-exact"},
           "results": out, "fused_other_shapes": fused_more,
           "lineage_parents": lineage})
     return out
+
+
+def ladder_sel(sensor, cam, mesh, dev, depth, level, seed):
+    """The pixels one level of the compaction ladder selects on a scene at
+    ``depth`` (what the sensor hands the row kernels), int32."""
+    states, _ = scene(dev, P, cam, mesh, depth, seed)
+    book = sensor.selection(sensor.candidates(states))
+    pcap, tcap = sensor.caps(cam.num_pixels)[level]
+    sel, _ = sensor.level_indices(book, pcap, tcap, cam.num_pixels)
+    return sel.to(torch.int32).contiguous()
+
+
+def hostile_sel(sel, n_rows):
+    """``sel`` with every seventh entry out of range, both ways."""
+    bad = sel.clone()
+    wild = torch.tensor([-1, n_rows, n_rows + 1000, 2**31 - 1, -2**31],
+                        dtype=torch.int32, device=sel.device)
+    k = bad[::7].numel()
+    bad[::7] = wild.repeat(-(-k // wild.numel()))[:k]
+    return bad
+
+
+def row_results(dev, sensor, cam, mesh, q, g, sel_tight=None,
+                hostile=True):
+    """``gather_pixel_rows`` and ``scatter_pixel_rows`` at the ladder's
+    tight and second level (448 and 2,432 selected pixels of the map
+    ``q``): bit-exact against the plain versions; device times warm
+    (:func:`time_pair`, ``index_select`` / ``index_copy_`` beside) and
+    cold (over copies of the map, in turns with the library call); the
+    bound. The gather's bulk-copy engine (not on the path) and a device
+    copy of as many contiguous rows are timed beside it, warm and cold.
+    The gather is also held to its plain version on ``sel`` with
+    duplicates,
+    in float32 and, with ``hostile``, on ``sel`` out of range (both
+    clamp; a gather that does not would read outside the map)."""
+    row_bytes = q.shape[1] * q.element_size()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bulk_plan = getattr(kernels, "bulk_rows_plan", None)
+    res = {"gather_pixel_rows": {}, "scatter_pixel_rows": {}}
+    for level, depth, seed, want in (("tight", 0.8, SEED, 448),
+                                     ("second", 0.25, SEED + 1, 2432)):
+        sel = ladder_sel(sensor, cam, mesh, dev, depth,
+                         0 if level == "tight" else 1, seed)
+        if level == "tight" and sel_tight is not None:
+            check(torch.equal(sel, sel_tight.to(torch.int32)),
+                  "tight level selects other pixels than the fused inputs")
+        check(sel.numel() == want and sel.unique().numel() == want,
+              f"{level} level: {sel.numel()} rows, expected {want} distinct")
+        sel64 = sel.long()
+        got = kernels.gather_pixel_rows(q, sel)
+        check(torch.equal(got, kernels.gather_pixel_rows_plain(q, sel)),
+              f"gather_pixel_rows differs ({level})")
+        dup = sel.clone()
+        dup[1::2] = sel[0::2][:dup[1::2].numel()]
+        cases = {"duplicates": (q, dup), "float32": (q.float(), sel)}
+        if hostile:
+            bad = hostile_sel(sel, q.shape[0])
+            cases["out_of_range"] = (q, bad)
+            cases["float32_out_of_range"] = (cases["float32"][0], bad)
+        for name, (m, s_) in cases.items():
+            check(torch.equal(kernels.gather_pixel_rows(m, s_),
+                              kernels.gather_pixel_rows_plain(m, s_)),
+                  f"gather_pixel_rows differs ({level}, {name})")
+        del cases
+        per_call = 2 * nbytes(got) + nbytes(sel)
+        maps = [q.clone() for _ in range(cold_copies(per_call))]
+        gather = {"rows": want, "max_abs_err": 0.0,
+                  "checked": ["real sel", "duplicates", "float32"]
+                  + (["out_of_range", "float32_out_of_range"]
+                     if hostile else [])}
+        gather.update(time_pair(
+            lambda: kernels.gather_pixel_rows_plain(q, sel),
+            lambda: kernels.gather_pixel_rows(q, sel),
+            library=lambda: q.index_select(0, sel64)))
+        gather.update(roofline(per_call))
+        # cold, in turns: the kernel, index_select, the bulk-copy engine
+        # (this slice's attempt, not on the path), and a device copy of as
+        # many contiguous rows (the yardstick: the same bytes with no
+        # index to follow)
+        warm = {"copy_ms": lambda: q[:want].clone()}
+        cold = {"cold_ms": [lambda m=m: kernels.gather_pixel_rows(m, sel)
+                            for m in maps],
+                "library_cold_ms": [lambda m=m: m.index_select(0, sel64)
+                                    for m in maps],
+                "copy_cold_ms": [lambda m=m: m[:want].clone()
+                                 for m in maps]}
+        if bulk_plan is not None:
+            bulk = bulk_plan(want, row_bytes, sms)
+            check(torch.equal(kernels._gather_rows_launch(q, sel, bulk),
+                              got), f"gather_pixel_rows' bulk engine "
+                                    f"differs ({level})")
+            gather.update(
+                plan=kernels.gather_rows_plan(want, row_bytes)._asdict(),
+                bulk_plan=bulk._asdict())
+            warm["bulk_engine_ms"] = (
+                lambda: kernels._gather_rows_launch(q, sel, bulk))
+            cold["bulk_engine_cold_ms"] = [
+                lambda m=m: kernels._gather_rows_launch(m, sel, bulk)
+                for m in maps]
+        gather.update(in_turns(warm, device_ms))
+        gather.update(in_turns(cold, cold_device_ms))
+        gather["cold_copies"] = len(maps)
+        res["gather_pixel_rows"][level] = gather
+
+        vals = torch.rand(got.shape, generator=g, device=dev).to(q.dtype)
+        q_k, q_p = q.clone(), q.clone()
+        kernels.scatter_pixel_rows(q_k, vals, sel)
+        kernels.scatter_pixel_rows_plain(q_p, vals, sel)
+        check(torch.equal(q_k, q_p), f"scatter_pixel_rows differs ({level})")
+        scatter = {"rows": want, "max_abs_err": 0.0}
+        scatter.update(time_pair(
+            lambda: kernels.scatter_pixel_rows_plain(q_p, vals, sel),
+            lambda: kernels.scatter_pixel_rows(q_k, vals, sel),
+            library=lambda: q_p.index_copy_(0, sel64, vals)))
+        scatter.update(roofline(2 * nbytes(vals) + nbytes(sel)))
+        rows = [vals.clone() for _ in maps]
+        scatter.update(cold_pair(
+            [lambda m=m, r=r: kernels.scatter_pixel_rows(m, r, sel)
+             for m, r in zip(maps, rows)],
+            [lambda m=m, r=r: m.index_copy_(0, sel64, r)
+             for m, r in zip(maps, rows)]))
+        scatter["cold_copies"] = len(maps)
+        res["scatter_pixel_rows"][level] = scatter
+        del q_k, q_p, maps, rows
+    return res
+
+
+def phase_rows(dev):
+    """The row kernels alone (``--compare``), on the kernels phase's map
+    and ladder levels, without the out-of-range gather: the same
+    comparison runs in a commit whose gather does not clamp."""
+    cam = default_kinect_camera(8, device=dev)
+    mesh = icosphere_mesh(radius=0.06, subdivisions=3, device=dev)
+    sensor = fs.make_fused_sensor(
+        mesh, cam, beam.make_beam_params(device=dev),
+        occlusion.make_occlusion_params(device=dev), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    q = torch.rand((fs._round_up(cam.num_pixels, sensor.nb),
+                    fs.particle_pad(P)), generator=g,
+                   device=dev).to(torch.bfloat16)
+    emit({"phase": "rows", "calls_per_graph": CALLS_PER_GRAPH,
+          "l2_bytes": l2_bytes(),
+          "results": row_results(dev, sensor, cam, mesh, q, g,
+                                 hostile=False)})
 
 
 def real_step_parents(dev):
@@ -713,11 +924,16 @@ def lineage_results(dev, q, g):
             per_case["systematic_f32_ms"] = device_ms(
                 lambda: kernels.lineage_gather(q32, idx))
             del q32
-            # cold: three maps in turn (each call moves 97 MB in and 97 MB
-            # out, more than the L2 holds, so this should equal the above)
-            maps = [q] + [q.clone() for _ in range(2)]
-            times["cold_ms"] = main["cold_ms"] = cold_device_ms(
-                [lambda m=m: kernels.lineage_gather(m, idx) for m in maps])
+            # cold: maps in turn (a call moves 97 MB out and nearly all of
+            # its 97 MB in, more than the L2 holds, so this should equal
+            # the above), index_select on the same maps in turns
+            maps = [q] + [q.clone()
+                          for _ in range(cold_copies(times["bytes"]) - 1)]
+            cold = cold_pair(
+                [lambda m=m: kernels.lineage_gather(m, idx) for m in maps],
+                [lambda m=m: m.index_select(1, idx64) for m in maps])
+            times.update(cold, cold_copies=len(maps))
+            main.update(cold)
             # the yardstick under the same conditions: a device copy of
             # each map into a new buffer
             times["copy_cold_ms"] = cold_device_ms(
@@ -783,6 +999,13 @@ def lineage_two_widths(dev, parents, g):
         cols_read = int(lib_idx.unique().numel())
         times.update(roofline(cols_read * n_rows * src.element_size()
                               + nbytes(got) + nbytes(idx)))
+        srcs = [src] + [src.clone()
+                        for _ in range(cold_copies(times["bytes"]) - 1)]
+        times.update(cold_pair(
+            [lambda m=m: kernels.lineage_gather(m, idx) for m in srcs],
+            [lambda m=m: m.index_select(1, lib_idx) for m in srcs]))
+        times["cold_copies"] = len(srcs)
+        del srcs
         times.update({"p_in": p_in, "p_out": idx.shape[0], "rows": n_rows,
                       "columns_read": cols_read, "max_abs_err": 0.0})
         out[name] = times
@@ -2049,10 +2272,17 @@ def phase_scale(dev, card):
     return launches
 
 
-def main():
+def main(argv=None):
+    compare = "--compare" in (sys.argv[1:] if argv is None else argv)
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    if compare:
+        # what a comparison of two commits reads, in one run of each
+        phase_rows(dev)
+        phase_slice(dev)
+        emit(ok_line())
+        return 0
     kres = phase_kernels(dev)
     phase_sensor(dev)
     launches, tracker, depth = phase_slice(dev)
@@ -2071,13 +2301,19 @@ def main():
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
-         "cold_ms": kres[name].get("cold_ms"),
-         **({"two_widths": kres[name]["two_widths"]}
-            if "two_widths" in kres[name] else {})}
+         **{k: kres[name].get(k) for k in (
+             "cold_ms", "library_cold_ms", "calls_per_graph")},
+         **{k: kres[name][k] for k in ("second_level", "two_widths")
+            if k in kres[name]}}
         for name, (src, rep) in KERNELS.items()]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit(ok_line())
+    return 0
+
+
+def ok_line():
+    return {"ok": True, "device": {"platform": "gpu",
+                                   "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":

@@ -18,8 +18,8 @@ Scratch and outputs are allocated here with ``torch.empty``, never in a
 kernel: ``fused_loglik`` takes one ``(n_groups, p_pad)`` float32 buffer of
 partial sums (``n_groups`` comes from the library, a function of the
 shapes and the card's SM count: 13 rows at 448 pixels and 10,112
-particles on an H100); ``lineage_gather`` takes none beside its output
-(its staging ring is shared memory).
+particles on an H100); ``lineage_gather`` takes none beside its output (its
+staging ring is shared memory), nor does ``gather_pixel_rows``.
 
 Dispatch: a tensor on the CPU goes to the plain version (``*_plain``); a
 CUDA tensor launches the kernel, or raises on a wrong dtype, shape,
@@ -32,6 +32,8 @@ The sources' headers say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -213,8 +215,9 @@ fused_loglik.launches = 0
 # ---------------------------------------------------------------------------
 
 def gather_pixel_rows_plain(q, sel):
-    """``out[j] = q[sel[j]]`` (plain PyTorch version)."""
-    return q.index_select(0, sel.long())
+    """``out[j] = q[clamp(sel[j], 0, n_rows - 1)]`` (plain PyTorch
+    version)."""
+    return q.index_select(0, sel.long().clamp(0, q.shape[0] - 1))
 
 
 def scatter_pixel_rows_plain(q, vals, sel):
@@ -235,20 +238,89 @@ def _check_rows(q, sel):
     return row_bytes
 
 
+class RowsPlan(NamedTuple):
+    """How ``gather_pixel_rows``' kernel cuts its work into ``n_items``
+    (row, chunk) items, every row into ``chunks_per_row`` chunks of
+    ``chunk_bytes`` (the last one shorter), for one of its two engines.
+    The register engine (``bulk`` false, the one on the path,
+    :func:`gather_rows_plan`): 16-byte items, a block of
+    ``ROWS_REG_THREADS`` threads per row (``grid`` = rows), each thread
+    moving ``ROWS_REG_UNROLL`` of them a pass. The bulk-copy engine
+    (:func:`bulk_rows_plan`): items dealt in
+    turn to ``grid`` one-warp blocks, each with a ring of ``n_slots``
+    chunk-sized slots (``smem_bytes`` of dynamic shared memory)."""
+    bulk: bool
+    chunk_bytes: int
+    chunks_per_row: int
+    n_items: int
+    grid: int
+    n_slots: int
+    smem_bytes: int
+
+
+# pixel_rows.cu's limits: the register engine's kRegThreads and
+# kRegUnroll; the bulk engine's kMaxSlots, kMaxRingBytes and kLag stores
+# in flight (a block needs more slots than that)
+ROWS_REG_THREADS, ROWS_REG_UNROLL = 512, 3
+ROWS_MAX_SLOTS = 32
+ROWS_RING_BYTES = 112 * 1024
+ROWS_LAG = 4
+# the bulk plan's choices: an item is at most 8 KB (a 20 KB row is
+# three), two one-warp blocks per SM, each with a ring of up to
+# ROWS_RING_BYTES
+ROWS_CHUNK_BYTES = 8192
+ROWS_BLOCKS_PER_SM = 2
+
+
+def gather_rows_plan(n_sel: int, row_bytes: int) -> RowsPlan:
+    """The register engine's work split for ``n_sel`` rows of
+    ``row_bytes`` (a multiple of 16): 16-byte items, a block per row."""
+    vecs = row_bytes // 16
+    return RowsPlan(False, 16, vecs, n_sel * vecs, n_sel, 0, 0)
+
+
+def bulk_rows_plan(n_sel: int, row_bytes: int, sms: int) -> RowsPlan:
+    """The bulk-copy engine's work split (this engine is measured beside
+    the register engine by chip_smoke.py, not on the path: PERF.md §6)
+    on a card with ``sms`` SMs. Items are the fewest chunks of at most
+    ``ROWS_CHUNK_BYTES`` a row, of equal size up to 16 bytes."""
+    vecs = row_bytes // 16
+    max_vecs = ROWS_CHUNK_BYTES // 16
+    chunk_vecs = -(-vecs // -(-vecs // max_vecs))
+    chunks = -(-vecs // chunk_vecs)
+    chunk = 16 * chunk_vecs
+    n_slots = min(ROWS_MAX_SLOTS, ROWS_RING_BYTES // chunk)
+    n_items = n_sel * chunks
+    return RowsPlan(True, chunk, chunks, n_items,
+                    min(n_items, ROWS_BLOCKS_PER_SM * sms), n_slots,
+                    n_slots * chunk)
+
+
 def gather_pixel_rows(q, sel):
     """Pixel-row gather ``out[j, :] = q[sel[j], :]``; duplicate ``sel``
-    entries are allowed. Every entry must lie in ``[0, q.shape[0])``
-    (the caller clamps: the kernel does not check)."""
+    entries are allowed, and every entry is clamped into ``[0,
+    q.shape[0])``, by the kernel too, so it never reads outside the map.
+
+    On CUDA: ``q`` contiguous with 16-byte rows and alignment, ``sel``
+    int32. The kernel's work split is :func:`gather_rows_plan`'s."""
     if not q.is_cuda:
         return gather_pixel_rows_plain(q, sel)
     row_bytes = _check_rows(q, sel)
+    if sel.shape[0] == 0:
+        return torch.empty((0, q.shape[1]), dtype=q.dtype, device=q.device)
+    return _gather_rows_launch(q, sel,
+                               gather_rows_plan(sel.shape[0], row_bytes))
+
+
+def _gather_rows_launch(q, sel, plan):
+    """Launch the gather kernel on checked arguments with ``plan``
+    (chip_smoke.py also times the bulk-copy engine through it)."""
     out = torch.empty((sel.shape[0], q.shape[1]), dtype=q.dtype,
                       device=q.device)
-    if sel.shape[0] == 0:
-        return out
-    err = _lib().dbot_gather_pixel_rows(q.data_ptr(), sel.data_ptr(),
-                                        out.data_ptr(), sel.shape[0],
-                                        row_bytes, _stream(q))
+    err = _lib().dbot_gather_pixel_rows(
+        q.data_ptr(), sel.data_ptr(), out.data_ptr(), sel.shape[0],
+        q.shape[0], q.shape[1] * q.element_size(), int(plan.bulk),
+        plan.chunk_bytes, plan.n_slots, plan.grid, _stream(q))
     gather_pixel_rows.launches += 1
     _raise_on(err, "gather_pixel_rows launch")
     return out

@@ -276,6 +276,43 @@ def test_pixel_rows_match_plain(cuda):
         kernels.scatter_pixel_rows(a, shifted, sel)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("row_bytes", [16, 20_224, 20_240])
+def test_gather_rows_edges(cuda, dtype, row_bytes):
+    """The gather at its edges, through the wrapper (the register engine)
+    and with the bulk-copy engine: rows of one 16-byte chunk, of three equal chunks and of a
+    ragged last chunk; a map of one row; row counts around one item per
+    block and at the ladder's levels; sel with duplicates and out of
+    range. Bit-exact."""
+    g = torch.Generator(device=cuda).manual_seed(row_bytes)
+    width = row_bytes // torch.empty((), dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n_rows in (1, 4800):
+        q = torch.rand((n_rows, width), generator=g, device=cuda).to(dtype)
+        for n_sel in (1, 131, 133, 448, 2432):
+            sel = torch.randint(0, n_rows, (n_sel,), generator=g,
+                                device=cuda, dtype=torch.int32)
+            dup = sel.clone()
+            dup[1::2] = sel[0]
+            bad = sel.clone()
+            bad[::3] = torch.tensor([-1, n_rows, 2**31 - 1, -2**31],
+                                    dtype=torch.int32,
+                                    device=cuda).repeat(n_sel)[:bad[::3]
+                                                               .numel()]
+            for s in (sel, dup, bad):
+                want = kernels.gather_pixel_rows_plain(q, s)
+                before = kernels.gather_pixel_rows.launches
+                runs = [kernels.gather_pixel_rows(q, s)]
+                assert kernels.gather_pixel_rows.launches == before + 1
+                runs.append(kernels._gather_rows_launch(
+                    q, s, kernels.bulk_rows_plan(n_sel, row_bytes, sms)))
+                torch.cuda.synchronize()
+                for got in runs:
+                    assert got.shape == (n_sel, width)
+                    assert torch.equal(got.view(torch.uint8),
+                                       want.view(torch.uint8))
+
+
 def test_lineage_gather_matches_plain_and_checks_its_arguments(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     for dtype, shape in ((torch.bfloat16, (333, 1288)),
