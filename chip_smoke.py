@@ -45,7 +45,44 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
 6. profile: ``torch.profiler`` over 10 ``track`` calls — device busy ms
    per step, idle share, kernels per step, the largest kernels (the full
    table goes to ``build/profile_step.txt``);
-7. cli: the command-line tracker at the same width, in-process through
+7. objects: two tracked objects at the same width: the slice's sphere
+   and the eval suite's ``box_mesh(0.05, 0.07, 0.03)``, which crosses in
+   front of the sphere (its centre 8 cm nearer, partly hiding it over
+   the middle frames), through ``node.run`` over 60 frames with the eval
+   suite's process noise and a fixed ``bary_slack`` (the automatic rule
+   at the box's depth in the box's units, 0.0506: the automatic slack
+   takes the sphere's finer faces as the unit for both meshes and widens
+   the box's faces by ~1.7 cm; that run is printed as a reading,
+   ``auto_slack_...``, not checked). Checks: each object's position RMSE under 1 cm
+   over the last 30 frames; every frame launches the fused kernel and
+   the row gather twice (one sensor call per coordinate block), the row
+   scatter once (only the last block commits) and the lineage gather
+   twice (once per block); one filter step from the belief before the
+   crossing frame on the card against the same step on the CPU, with the
+   same ``BlockNoise`` draws (poses 1e-4 m / 1e-3 rad). Prints ``track``
+   median and p90 timed in turns with the slice's tracker (two, one,
+   one, two), the device memory the tracker holds and one step adds;
+8. options: the fused sensor's options at the same width, on the
+   slice's belief after 10 frames and the next 3 frames: ``merge=
+   "select"`` against ``"scatter"`` and ``active_cap_frac=1/12,
+   tri_cap_frac=0.2`` against ``levels=[(1/12, 0.2)]`` (loglik, map and
+   ages bit-equal); ``bary_slack=0.0`` against a plain-PyTorch exact
+   intersection of the same candidate sets and ``image_loglik`` (rtol
+   2e-4, 0.05 nats); ``reference_poses=4`` against 1 on the belief
+   collapsed to its mean (1e-5; on the tracked cloud itself the two
+   differ, printed), and on a bimodal cloud (the belief split into two
+   blocks 3 cm apart) the share of each mode's exact silhouette with a
+   candidate, R = 4 at least 90 % on both; g < 0 (``p_occluded_visible
+   0.4, p_occluded_occluded 0.1``) on a raw map: the eager compacted
+   branch against the full level over the 3 frames (loglik rtol 2e-5 +
+   0.01 nats; float32 map 1e-5, bfloat16 one ulp), on a compacted level
+   with both row kernels launched every frame. Prints the device ms of
+   one call's device work (``FusedSensor.apply`` in a CUDA graph) on the
+   eager and the full route, in turns; the select merge's gather (4,800
+   rows out of 448) warm and cold against ``index_select`` on the same
+   copies, with its bound and a device copy of its output; the whole
+   call with the select and with the scatter merge;
+9. cli: the command-line tracker at the same width, in-process through
    ``dbot_ros_tpu_torch.runtime.cli.main``: ``record`` a 60-frame
    ``teleport`` trajectory of the icosphere (written to an ``.obj``),
    then ``track --auto-init --watchdog --checkpoint``. Checks the
@@ -55,7 +92,7 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    1 cm), the checkpoint (load, restore, one more frame) and that all
    four kernels launched. Prints the seconds of the search and of the
    re-init, and the per-frame latency inside and outside the trial;
-8. rgf: the second estimator at the same width: ``GaussianTracker``
+10. rgf: the second estimator at the same width: ``GaussianTracker``
    (default config: 3 iterations, occlusion memory, the candidate-set
    sigma renderer, every pixel) over the slice's 60 frames through
    ``runtime.node.run``, position RMSE under 1 cm. The first 3 frames on
@@ -75,16 +112,16 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    configuration, the two timed in turns (3, 6, 6, 3 iterations) before
    either is profiled; the one-hot product against the gather at 25
    poses and at the particle chunk; the batched step over 4 scenes;
-9. rgf_cli: ``record --trajectory teleport`` then ``track --auto-init
+11. rgf_cli: ``record --trajectory teleport`` then ``track --auto-init
    --watchdog --checkpoint`` with a Gaussian config: the watchdog trips
    after the jump at frame 12, the re-init races at least two
    hypotheses, the last 10 frames are within 1 cm, the checkpoint
    restores and tracks;
-10. deferred: ``ParticleTracker(backend="deferred")``, 10,000 particles,
+12. deferred: ``ParticleTracker(backend="deferred")``, 10,000 particles,
    20 frames, RMSE under 1 cm; the particle chunk the memory budget
    chose, peak memory, and 512 particles' depths against the exact
    raycast (share of (particle, pixel) pairs that differ);
-11. live: the deployment path. 240 frames of the slice's trajectory are
+13. live: the deployment path. 240 frames of the slice's trajectory are
    rendered first, into a host list, by ``OracleSource`` at the Kinect's
    native 640×480 grid (edge artifacts 0.3, whole millimetres) and
    converted by ``U16CameraAdapter`` (uint16 mm, the native 8× strided
@@ -103,7 +140,7 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    checkpoint loads, restores and tracks. Prints ``track`` median and
    p90, frames dropped in all, in the pause and in the search, the
    search's seconds, render and conversion ms, ms from push to pose;
-12. scale: the distributed filter (``dbot_ros_tpu_torch.parallel``).
+14. scale: the distributed filter (``dbot_ros_tpu_torch.parallel``).
    One rank under NCCL on the card: ``make_distributed_step(exchange=
    "counts")`` over the slice's 60 frames at its width (position RMSE
    under 1 cm, every kernel launched), three forced-resample frames
@@ -129,9 +166,11 @@ a map out of the 10,240-column concatenation of two), bit-exact. The rgf, rgf_cl
 and deferred paths launch no hand-written kernel (the reference's are
 plain array code too): their launch counts are printed and are zero.
 The kernels line gives each kernel's launches in the slice
-(``launches``), in the live phase (``live_launches``) and in the scale
-phase's one-rank run (``scale_launches``), each counted from 0 just
-before that path and read just after.
+(``launches``), in the live phase (``live_launches``), in the scale
+phase's one-rank run (``scale_launches``), in the objects phase's 60
+frames (``objects_launches``) and in the options phase's checks
+(``options_launches``), each counted from 0 just before that path and
+read just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -165,9 +204,11 @@ import torch
 from dbot_ros_tpu_torch import config as cfg
 from dbot_ros_tpu_torch.filters import rbcpf, rgf
 from dbot_ros_tpu_torch.models import beam, occlusion, transition
+from dbot_ros_tpu_torch.models.image_loglik import image_loglik
 from dbot_ros_tpu_torch.ops import build, deferred, kernels, raycast
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
 from dbot_ros_tpu_torch.ops import resample
+from dbot_ros_tpu_torch.ops import slack as slack_mod
 from dbot_ros_tpu_torch.parallel import comm as comm_mod
 from dbot_ros_tpu_torch.parallel import dist_filter, dryrun
 from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
@@ -177,7 +218,8 @@ from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.camera import (default_kinect_camera,
                                            make_camera, preprocess_depth)
-from dbot_ros_tpu_torch.utils.mesh import icosphere_mesh, tagged_l_mesh
+from dbot_ros_tpu_torch.utils.mesh import (box_mesh, icosphere_mesh,
+                                         tagged_l_mesh)
 
 P = 10_000
 SEED = 0
@@ -259,6 +301,37 @@ SCALE_WARMUP, SCALE_STEPS = 2, 5
 # their parent within one bf16 step (a moved parent shifts the cloud's
 # mean, and with it, rarely, a candidate pixel)
 SCALE_OCC_ATOL = 4e-3
+
+# the objects phase: the eval suite's box crossing in front of the slice's
+# sphere (a centre 8 cm nearer, 3.7 mm a frame, 0.01 rad a frame about x)
+OBJECTS_BOX = (0.05, 0.07, 0.03)
+OBJECTS_BOX_X0, OBJECTS_BOX_SPEED = 0.11, 0.0037
+OBJECTS_BOX_Z, OBJECTS_BOX_SPIN = 0.72, 0.01
+OBJECTS_CROSS_FRAME = 30
+OBJECTS_LAST_FRAMES = 30
+OBJECTS_POS_ATOL_M, OBJECTS_ROT_ATOL_RAD = 1e-4, 1e-3
+# a two-object frame: the fused kernel and the row gather once per
+# coordinate block, the row scatter on the last block only (the first
+# call does not commit), the lineage gather once per block (rbcpf_step
+# gathers after every block, the parents or the identity)
+OBJECTS_LAUNCHES_PER_FRAME = {"fused_loglik": 2, "gather_pixel_rows": 2,
+                              "scatter_pixel_rows": 1, "lineage_gather": 2}
+ROW_KERNELS = ("gather_pixel_rows", "scatter_pixel_rows")
+# the options phase: the slice's belief after 10 frames, 3 sensor frames
+OPTIONS_TRACKED_FRAMES, OPTIONS_FRAMES = 10, 3
+# the bimodal cloud: two blocks 3 cm apart; R = 4 must give candidates on
+# at least this share of each mode's exact silhouette
+OPTIONS_MODE_GAP_M, OPTIONS_MODE_COVERAGE = 0.03, 0.90
+# (p_occluded_visible, p_occluded_occluded) of a chain with g < 0
+OPTIONS_NEG_CHAIN = (0.4, 0.1)
+# the exact inside-test against the exact intersection of the same
+# candidates (tests/test_pallas.py's multi-object oracle): the two differ
+# in the order of the sum over pixels and the kernel's exp/log, and on a
+# ray within float rounding of a triangle's edge, which one computation
+# may count as a hit and the other as a miss (a particle with a ray
+# within SLACK0_EDGE barycentric units of an edge is counted, not held)
+SLACK0_RTOL, SLACK0_ATOL = 2e-4, 0.05
+SLACK0_EDGE = 1e-4
 
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
@@ -374,11 +447,13 @@ def cold_device_ms(fns):
 def in_turns(named, reading):
     """``reading(x)`` for every ``x`` of the dict ``named``, in turns (its
     order, then the reverse: plain, kernel, kernel, plain for two), and
-    averaged per name."""
+    averaged per name (per key where a reading is a dict)."""
     out = {k: [] for k in named}
     for k in list(named) + list(reversed(named)):
         out[k].append(reading(named[k]))
-    return {k: statistics.mean(v) for k, v in out.items()}
+    return {k: ({f: statistics.mean(r[f] for r in v) for f in v[0]}
+                if isinstance(v[0], dict) else statistics.mean(v))
+            for k, v in out.items()}
 
 
 def cold_pair(kernel_fns, library_fns):
@@ -1191,6 +1266,475 @@ def profile_steps(tracker, depth, table_path, steps=10):
 
 def phase_profile(tracker, depth, table_path):
     emit({"phase": "profile", **profile_steps(tracker, depth, table_path)})
+
+
+# ---------------------------------------------------------------------------
+# objects: two tracked objects at the slice's width
+# ---------------------------------------------------------------------------
+
+def box_slack():
+    """The automatic slack rule (ops/slack.py: 0.25 px of footprint) at
+    the box's depth in the box's own barycentric units (0.0506). The
+    sensor's automatic slack takes the finest mesh's median edge for
+    every mesh: the sphere's 9.4 mm gives 0.32, which widens the box's
+    5.4 cm faces by ~1.7 cm, and the box's estimate wanders in that band
+    (the phase's ``auto_slack`` reading)."""
+    box = box_mesh(*OBJECTS_BOX)
+    fx = float(default_kinect_camera(8).camera_matrix[0, 0])
+    return float(slack_mod.auto_bary_slack(
+        torch.tensor(OBJECTS_BOX_Z), 1.0 / fx, slack_mod.median_edge([box])))
+
+
+def objects_config(bary_slack=None):
+    """The slice's configuration with the eval suite's process noise for
+    its moving objects (benchmarks/eval_suite.py:147-149): the box moves
+    at 0.11 m/s, which the slice's (0.1 m/s^1.5, damping 4) cannot
+    follow; ``bary_slack`` None keeps the automatic slack."""
+    conf = slice_config()
+    conf.transition = cfg.TransitionConfig(0.4, 2.5, damping=6.0)
+    if bary_slack is not None:
+        conf.backend_options = {"bary_slack": bary_slack}
+    return conf
+
+
+def objects_scene():
+    """The slice's camera and sphere (its trajectory) and the eval suite's
+    box (benchmarks/eval_suite.py:57-62), which crosses in front of the
+    sphere from right to left over the run, turning about x, its centre
+    OBJECTS_BOX_Z (its back face 5 mm before the sphere's nearest point:
+    the eval suite's 6 cm between centres would put the box inside this
+    larger sphere). Its centre passes the sphere's at frame
+    OBJECTS_CROSS_FRAME."""
+    cam, sphere, sphere_traj = slice_scene()
+    box = box_mesh(*OBJECTS_BOX)
+
+    def traj(t):
+        th = OBJECTS_BOX_SPIN * t
+        box_pose = [OBJECTS_BOX_X0 - OBJECTS_BOX_SPEED * t, 0.01,
+                    OBJECTS_BOX_Z, np.cos(th / 2), np.sin(th / 2), 0, 0]
+        return np.concatenate([sphere_traj(t), [box_pose]]).astype(
+            np.float32)
+
+    return cam, [sphere, box], traj
+
+
+def copy_leaf(occ, device=None):
+    """A copy of an occlusion leaf (on ``device``): the sensor writes the
+    map in place."""
+    return (tuple(x.to(device).clone() for x in occ)
+            if isinstance(occ, (tuple, list)) else occ.to(device).clone())
+
+
+def clone_belief(belief, device=None):
+    """A copy of a belief (on ``device``), its occlusion map included."""
+    return rbcpf.ParticleBelief(belief.states.to(device).clone(),
+                                belief.log_weights.to(device).clone(),
+                                copy_leaf(belief.occlusion, device))
+
+
+def objects_against_cpu(dev, tracker, belief, depth, conf):
+    """One filter step (what ``track`` runs) from ``belief`` on the card
+    and on the CPU (the kernels' plain versions), with the same
+    ``BlockNoise`` draws for both blocks: the model-frame poses of the
+    two."""
+    cpu = torch.device("cpu")
+    cam, meshes, _ = objects_scene()
+    g = torch.Generator().manual_seed(SEED + 7)
+    n = belief.states.shape[0]
+    noise = [(torch.randn((n, 6), generator=g),
+              torch.randn((n, 6), generator=g), torch.rand((), generator=g))
+             for _ in meshes]
+    poses = {}
+    for d in (dev, cpu):
+        tr = tracker if d == dev else ParticleTracker(
+            conf, meshes=meshes, camera=cam, device=cpu)
+        z = preprocess_depth(torch.as_tensor(depth, device=d).reshape(-1))
+        _, info = rbcpf.rbcpf_step(
+            clone_belief(belief, d), z, tr.sensor, tr.trans_params,
+            tr._dt, max_kl_divergence=tr.config.max_kl_divergence,
+            noise=[rbcpf.BlockNoise(e1.to(d), e2.to(d), u.to(d))
+                   for e1, e2, u in noise])
+        poses[d.type] = base.to_model_frame(info.mean_state[:, :7],
+                                            tr.centers).cpu()
+    a, b = poses["cuda" if dev.type == "cuda" else "cpu"], poses["cpu"]
+    pos = float(torch.linalg.norm(a[:, :3] - b[:, :3], dim=1).max())
+    rot = float(torch.linalg.norm(se3.quat_boxminus(a[:, 3:7], b[:, 3:7]),
+                                  dim=1).max())
+    check(pos <= OBJECTS_POS_ATOL_M and rot <= OBJECTS_ROT_ATOL_RAD,
+          f"objects: card against cpu on the crossing frame: {pos} m, "
+          f"{rot} rad")
+    return {"frame": OBJECTS_CROSS_FRAME, "max_pos_err_m": pos,
+            "max_rot_err_rad": rot}
+
+
+def objects_run(dev, conf, on_frame=None):
+    """The two-object tracker with ``conf`` over the phase's 60 frames:
+    (tracker, source, traj, run, each object's position RMSE over the
+    last OBJECTS_LAST_FRAMES frames)."""
+    cam, meshes, traj = objects_scene()
+    tracker = ParticleTracker(conf, meshes=meshes, camera=cam, device=dev)
+    source = sources.SyntheticSource(meshes, tracker.camera, traj, FRAMES,
+                                     seed=SEED)
+    run = node.run(tracker, source,
+                   on_frame=on_frame(tracker) if on_frame else None)
+    err = run.position_errors()[-OBJECTS_LAST_FRAMES:]
+    return (tracker, source, traj, run,
+            np.sqrt(np.mean(err ** 2, axis=0)).tolist())
+
+
+def phase_objects(dev, slice_tracker, slice_depth):
+    """Two objects through ``node.run`` (see the module docstring)."""
+    torch.cuda.synchronize()
+    # a reading, not a check: the same run with the automatic slack
+    auto_rmse = objects_run(dev, objects_config())[4]
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    slack = box_slack()
+    per_frame, levels, saved = [], [], {}
+
+    def watch(tracker):
+        def on_frame(frame, poses, info):
+            per_frame.append({k: w.launches for k, w in WRAPPERS.items()})
+            levels.append(tracker.sensor.last_level)
+            if frame.index == OBJECTS_CROSS_FRAME - 1:
+                saved["belief"] = clone_belief(tracker.belief)
+            if frame.index == OBJECTS_CROSS_FRAME:
+                saved["depth"] = frame.depth
+        return on_frame
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    tracker, source, traj, run, rmse = objects_run(
+        dev, objects_config(slack), watch)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    prev = {k: 0 for k in WRAPPERS}
+    for i, counts in enumerate(per_frame):
+        got = {k: counts[k] - prev[k] for k in WRAPPERS}
+        check(got == OBJECTS_LAUNCHES_PER_FRAME,
+              f"objects: frame {i} launched {got}, expected "
+              f"{OBJECTS_LAUNCHES_PER_FRAME}")
+        prev = counts
+    check(len(per_frame) == FRAMES and run.poses.shape == (FRAMES, 2, 7)
+          and np.all(np.isfinite(run.poses)), "objects: bad pose output")
+    check(max(rmse) < RMSE_LIMIT_M,
+          f"objects: position RMSE {rmse} m over the last "
+          f"{OBJECTS_LAST_FRAMES} frames")
+    versus = objects_against_cpu(dev, tracker, saved["belief"],
+                                 saved["depth"], tracker.config)
+    del saved
+
+    depth = source.render(torch.as_tensor(traj(FRAMES), device=dev)).cpu()
+    times = in_turns({"two": (tracker, depth), "one": (slice_tracker,
+                                                        slice_depth)},
+                     lambda td: track_ms(*td))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tracker.track(depth)
+    torch.cuda.synchronize()
+    step_extra = torch.cuda.max_memory_allocated() - held
+    emit({"phase": "objects", "particles": P, "objects": 2,
+          "triangles": [m.padded_triangles for m in tracker.meshes],
+          "pixels": tracker.camera.num_pixels, "frames": FRAMES,
+          "launches": launches,
+          "launches_per_frame": OBJECTS_LAUNCHES_PER_FRAME,
+          "levels_taken": {str(lv): levels.count(lv)
+                           for lv in sorted(set(levels))},
+          "bary_slack": slack,
+          "median_edges_m": [slack_mod.median_edge([m])
+                             for m in tracker.meshes],
+          "position_rmse_m_last_frames": rmse,
+          "auto_slack_position_rmse_m_last_frames": auto_rmse,
+          "last_frames": OBJECTS_LAST_FRAMES,
+          "position_rmse_m_all_frames": np.sqrt(np.mean(
+              run.position_errors() ** 2, axis=0)).tolist(),
+          "resampled_frames": run.metrics.resample_count(),
+          "against_cpu": versus,
+          "track_ms_two_objects": times["two"],
+          "track_ms_one_object": times["one"],
+          "median_ratio": times["two"]["track_ms_median"]
+          / times["one"]["track_ms_median"],
+          "timed_in_turns": "two, one, one, two",
+          "held_mem_bytes": held - held_before,
+          "step_extra_mem_bytes": step_extra})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# options: the fused sensor's options at the slice's width
+# ---------------------------------------------------------------------------
+
+def sensor_frames(sensor, states, occ, frames, dt):
+    """``sensor`` over ``frames`` from ``occ``: the logliks (F, P), the
+    last leaf, the levels taken and the row kernels' launches."""
+    before = {k: WRAPPERS[k].launches for k in ROW_KERNELS}
+    lls, levels = [], []
+    for z in frames:
+        ll, occ = sensor(states, occ, z, dt)
+        lls.append(ll)
+        levels.append(sensor.last_level)
+    return (torch.stack(lls), occ, levels,
+            {k: WRAPPERS[k].launches - before[k] for k in ROW_KERNELS})
+
+
+def equal_leaves(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def exact_candidate_depth(mesh, poses, cand, rays, slack=0.0, chunk=1000):
+    """(P, N) depth of each particle's intersection with its pixel's
+    candidate triangles, the inside-test widened by ``slack`` barycentric
+    units (0: exact), in particle chunks: the plain-PyTorch oracle of
+    tests/test_pallas.py's multi-object test."""
+    out = []
+    for i in range(0, poses.shape[0], chunk):
+        G, tn = raycast.pose_tri_constants(mesh, poses[i:i + chunk])
+        t = None
+        for k in range(cand.shape[1]):
+            nums = torch.einsum("nd,pnid->pni", rays, G[:, cand[:, k]])
+            tk = raycast._intersect_from_numerators(
+                nums[..., 0], nums[..., 1], nums[..., 2], tn[:, cand[:, k]],
+                slack=slack)
+            t = tk if t is None else torch.minimum(t, tk)
+        out.append(t)
+    return torch.cat(out)
+
+
+def edge_particles(mesh, poses, cand, rays):
+    """The particles with a ray within ``SLACK0_EDGE`` barycentric units of
+    a candidate's edge: their hits differ between the inside-test
+    narrowed and widened by that much, so two float32 computations of the
+    exact test may disagree on them."""
+    lo, hi = (exact_candidate_depth(mesh, poses, cand, rays, s)
+              for s in (-SLACK0_EDGE, SLACK0_EDGE))
+    return ((lo != hi) & (torch.isfinite(lo) | torch.isfinite(hi))).any(1)
+
+
+def bimodal_states(states, gap):
+    """The belief's particles split into two blocks ``gap`` apart in x
+    (the first half moved by −gap/2, the second by +gap/2), and the two
+    modes' poses (the unweighted mean of each block)."""
+    out = states.clone()
+    half = states.shape[0] // 2
+    out[:half, :, 0] -= gap / 2
+    out[half:, :, 0] += gap / 2
+    modes = [se3.states_mean(out[:half, 0])[:7],
+             se3.states_mean(out[half:, 0])[:7]]
+    return out, modes
+
+
+def mode_coverage(sensor, states, modes):
+    """Per mode: the share of its exact silhouette's pixels (a raycast of
+    the mode's pose) whose candidate set is not all degenerate
+    (``candidate``), and whose set holds the triangle that raycast hits
+    there (``exact_triangle``)."""
+    cand = sensor.candidates(states)
+    deg = sensor.union_triangles - 1
+    out = []
+    for pose in modes:
+        _, ids = deferred.raycast_ids(sensor.meshes[0], pose,
+                                      sensor.camera.rays)
+        sil = ids >= 0
+        out.append({
+            "silhouette_pixels": int(sil.sum()),
+            "candidate": float((cand != deg).any(1)[sil].float().mean()),
+            "exact_triangle": float((cand == ids[:, None]).any(1)[sil]
+                                    .float().mean())})
+    return out
+
+
+def select_gather_times(dev, occ_post, slot):
+    """The select merge's inverse row gather (every pixel's row out of the
+    compacted posterior), warm and cold, beside ``index_select`` on the
+    same copies and a device copy of as many rows."""
+    slot32 = slot.to(torch.int32).contiguous()
+    slot64 = slot.long()
+    got = kernels.gather_pixel_rows(occ_post, slot32)
+    check(torch.equal(got, kernels.gather_pixel_rows_plain(occ_post, slot32)),
+          "options: the select merge's gather differs from its plain "
+          "version")
+    rows_read = int(slot.unique().numel())
+    per_call = (rows_read * occ_post.shape[1] * occ_post.element_size()
+                + nbytes(got, slot32))
+    res = {"rows": slot.numel(), "source_rows": occ_post.shape[0],
+           "source_rows_read": rows_read, "max_abs_err": 0.0}
+    res.update(time_pair(
+        lambda: kernels.gather_pixel_rows_plain(occ_post, slot32),
+        lambda: kernels.gather_pixel_rows(occ_post, slot32),
+        library=lambda: occ_post.index_select(0, slot64)))
+    res.update(roofline(per_call))
+    res["copy_ms"] = device_ms(lambda: got.clone())
+    srcs = [occ_post.clone() for _ in range(cold_copies(
+        2 * nbytes(got)))]
+    res.update(cold_pair(
+        [lambda s=s: kernels.gather_pixel_rows(s, slot32) for s in srcs],
+        [lambda s=s: s.index_select(0, slot64) for s in srcs]))
+    res["cold_copies"] = len(srcs)
+    return res
+
+
+def phase_options(dev):
+    """The fused sensor's options (see the module docstring)."""
+    torch.cuda.synchronize()
+    tracker, source, traj = make_slice(dev, OPTIONS_TRACKED_FRAMES)
+    node.run(tracker, source)
+    states = tracker.belief.states
+    leaf = tracker.belief.occlusion
+    cam, mesh = tracker.camera, tracker.meshes[0]
+    bp, op, dt = tracker.beam_params, tracker.occ_params, tracker._dt
+    frames = [depth_of(source, traj, OPTIONS_TRACKED_FRAMES + i, dev)
+              for i in range(OPTIONS_FRAMES)]
+
+    def make(op=op, **opts):
+        return fs.make_fused_sensor(mesh, cam, bp, op, device=dev, **opts)
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = {}
+    # select against scatter, the single-level caps against levels
+    pairs = {"select_vs_scatter": (dict(merge="select"), {}),
+             "caps_vs_levels": (dict(active_cap_frac=1 / 12,
+                                     tri_cap_frac=0.2),
+                                dict(levels=[(1 / 12, 0.2)]))}
+    for name, (oa, ob) in pairs.items():
+        a = sensor_frames(make(**oa), states, copy_leaf(leaf), frames, dt)
+        b = sensor_frames(make(**ob), states, copy_leaf(leaf), frames, dt)
+        check(torch.equal(a[0], b[0]) and equal_leaves(a[1], b[1])
+              and a[2] == b[2],
+              f"options: {name}: loglik or map not bit-equal")
+        out[name] = {"levels": a[2], "row_launches": [a[3], b[3]],
+                     "bit_equal": True}
+    check(out["select_vs_scatter"]["row_launches"][0]["gather_pixel_rows"]
+          == 2 * OPTIONS_FRAMES, "options: the select merge did not gather "
+          "twice a frame")
+
+    # the exact inside-test against the exact intersection of the same
+    # candidate sets (float32 map, fresh)
+    exact = make(bary_slack=0.0, occ_dtype=torch.float32)
+    prior = float(op.initial_occlusion_prob)
+    ll, _ = exact(states, exact.init_occlusion(P, prior), frames[0], dt)
+    depth = exact_candidate_depth(mesh, states[:, 0, :7],
+                                  exact.candidates(states), cam.rays)
+    ll_ref, _ = image_loglik(depth, frames[0], torch.full_like(depth, prior),
+                             bp, op, float(np.float32(dt)
+                                           * np.float32(exact.frame_rate)))
+    # the kernel's pixel padding counts as invalid background returns
+    pad = fs._round_up(cam.num_pixels, exact.nb) - cam.num_pixels
+    ll_ref = ll_ref + pad * torch.log(bp.p_invalid_background)
+    err = (ll - ll_ref).abs()
+    off = err > SLACK0_ATOL + SLACK0_RTOL * ll_ref.abs()
+    edge = edge_particles(mesh, states[:, 0, :7], exact.candidates(states),
+                          cam.rays)
+    check(not bool((off & ~edge).any()),
+          f"options: bary_slack=0 off the exact intersection by "
+          f"{float(err[~edge].max())} on a particle with no ray at an edge")
+    out["exact_slack_vs_oracle"] = {
+        "max_abs_err": float(err[~edge].max()),
+        "max_abs_err_edge_particles": float(err.max()),
+        "edge_particles": int(edge.sum()),
+        "edge_particles_off": int((off & edge).sum()),
+        "level": exact.last_level,
+        "tolerance": f"rtol {SLACK0_RTOL}, atol {SLACK0_ATOL} on particles "
+                     f"with no ray within {SLACK0_EDGE} of an edge"}
+    del depth
+
+    # reference_poses: a collapsed cloud (every particle at the mean, where
+    # all four references are one pose: the reference's own check), the
+    # tracked cloud, and a bimodal one
+    collapsed = se3.states_mean(states[:, 0])[None, None].expand(
+        P, 1, 13).contiguous()
+    refs = {}
+    for R in (1, 4):
+        s = make(reference_poses=R)
+        refs[R] = {"collapsed": s(collapsed, s.init_occlusion(P, prior),
+                                  frames[0], dt)[0],
+                   "tracked": s(states, copy_leaf(leaf), frames[0], dt)[0],
+                   "tracked_cand": s.candidates(states), "sensor": s}
+    d_col = float((refs[4]["collapsed"] - refs[1]["collapsed"]).abs().max())
+    check(d_col <= 1e-5, f"options: reference_poses=4 against 1 on a "
+          f"collapsed cloud: {d_col}")
+    two, modes = bimodal_states(states, OPTIONS_MODE_GAP_M)
+    cover = {R: mode_coverage(refs[R]["sensor"], two, modes) for R in (1, 4)}
+    check(all(m["candidate"] >= OPTIONS_MODE_COVERAGE for m in cover[4]),
+          f"options: reference_poses=4 covers the modes at {cover[4]}")
+    out["reference_poses"] = {
+        "collapsed_max_abs_diff": d_col,
+        "tracked_max_abs_diff": float(
+            (refs[4]["tracked"] - refs[1]["tracked"]).abs().max()),
+        "tracked_candidate_pixels_differing": int(
+            (refs[4]["tracked_cand"] != refs[1]["tracked_cand"]).any(1)
+            .sum()),
+        "bimodal_gap_m": OPTIONS_MODE_GAP_M,
+        "bimodal_coverage": {f"R={R}": c for R, c in cover.items()}}
+    del refs
+
+    # g < 0: the eager compacted branch against the full level
+    op_neg = occlusion.make_occlusion_params(*OPTIONS_NEG_CHAIN,
+                                             device=dev)
+    eager_out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e_s = make(op_neg, occ_dtype=dtype)
+        f_s = make(op_neg, occ_dtype=dtype, levels=[(1.0, 1.0)])
+        e = sensor_frames(e_s, states, e_s.init_occlusion(P, prior),
+                          frames, dt)
+        f = sensor_frames(f_s, states, f_s.init_occlusion(P, prior),
+                          frames, dt)
+        check(all(lv < len(e_s.caps(cam.num_pixels)) for lv in e[2])
+              and all(v == OPTIONS_FRAMES for v in e[3].values()),
+              f"options: g < 0 took levels {e[2]}, row launches {e[3]}")
+        ll_err = (e[0] - f[0]).abs()
+        check(bool((ll_err <= 1e-2 + 2e-5 * f[0].abs()).all()),
+              f"options: g < 0 eager loglik off by {float(ll_err.max())}")
+        res = {"levels": e[2], "row_launches": e[3],
+               "ll_max_abs_err": float(ll_err.max())}
+        if dtype == torch.float32:
+            occ_err = float((e[1] - f[1]).abs().max())
+            check(occ_err <= 1e-5, f"options: g < 0 map off by {occ_err}")
+            res["occ_max_abs_err"] = occ_err
+        else:
+            ulps = int((e[1].view(torch.int16).int()
+                        - f[1].view(torch.int16).int()).abs().max())
+            check(ulps <= OCC_ULPS, f"options: g < 0 map off by {ulps} ulps")
+            res["occ_max_ulps"] = ulps
+        eager_out[str(dtype).split(".")[-1]] = res
+    out["negative_chain"] = eager_out
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+
+    # device ms of one call's device work on each route (CUDA graphs:
+    # the plan, with its host read, is made once outside)
+    routes = {}
+    for name, opts in (("eager_ms", {}), ("full_ms",
+                                          dict(levels=[(1.0, 1.0)]))):
+        s = make(op_neg, **opts)
+        q = s.init_occlusion(P, prior)
+        plan = s.plan(states, frames[0], dt)
+        routes[name] = (lambda s=s, q=q, plan=plan:
+                        s.apply(plan, states, q, frames[0]))
+    timing = in_turns(routes, device_ms)
+    # the select merge's gather at the tight level, and its whole merge
+    s = make(merge="select")
+    plan = s.plan(states, frames[0], dt)
+    pcap = s.caps(cam.num_pixels)[plan.level][0]
+    n_pad = fs._round_up(cam.num_pixels, s.nb)
+    slot = torch.cat([torch.clamp(plan.book["slot"], 0, pcap - 1),
+                      plan.book["slot"].new_zeros(
+                          (n_pad - cam.num_pixels,))])
+    occ_post = torch.rand((pcap, leaf[0].shape[1]), device=dev).to(
+        leaf[0].dtype)
+    timing["select_gather"] = select_gather_times(dev, occ_post, slot)
+    q = copy_leaf(leaf)
+    scatter = make()
+    timing.update(in_turns({
+        "select_merge_call_ms": lambda: s.apply(plan, states, q, frames[0]),
+        "scatter_merge_call_ms": lambda: scatter.apply(plan, states, q,
+                                                       frames[0])},
+        device_ms))
+    emit({"phase": "options", "particles": P, "tracked_frames":
+          OPTIONS_TRACKED_FRAMES, "frames": OPTIONS_FRAMES,
+          "launches": launches, "results": out, "times": timing})
+    return launches
 
 
 def write_icosphere_obj(path):
@@ -2287,7 +2831,9 @@ def main(argv=None):
     phase_sensor(dev)
     launches, tracker, depth = phase_slice(dev)
     phase_profile(tracker, depth, PROFILE_TABLE)
+    objects_launches = phase_objects(dev, tracker, depth)
     del tracker
+    options_launches = phase_options(dev)
     phase_cli(dev)
     phase_rgf(dev)
     phase_cli(dev, kind="gaussian")
@@ -2298,6 +2844,8 @@ def main(argv=None):
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "live_launches": live_launches[name],
          "scale_launches": scale_launches[name],
+         "objects_launches": objects_launches[name],
+         "options_launches": options_launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},

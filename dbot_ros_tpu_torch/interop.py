@@ -218,3 +218,36 @@ def checkpoint_from_jax(path, num_pixels: int = None, nb: int = 64,
     return belief_from_numpy(data["states"], data["log_weights"], occ,
                              num_pixels, age=age, nb=nb,
                              occ_dtype=occ_dtype, device=device)
+
+
+# a JAX FusedSensor's settings that the port's constructor takes as they
+# are (the map's dtype comes separately, by name)
+FUSED_SENSOR_SETTINGS = ("frame_rate", "levels", "num_candidates", "radius",
+                          "nb", "bary_slack", "bary_slack_px",
+                          "reference_poses", "merge", "lineage_gather")
+
+
+def fused_sensor_kwargs_from_jax(attrs):
+    """The port's ``FusedSensor`` keyword arguments from a plain dict of a
+    JAX ``FusedSensor``'s settings: its attributes named in
+    ``FUSED_SENSOR_SETTINGS`` (``frame_rate`` optional, ``levels`` a
+    list of pairs, ``bary_slack`` None for the automatic rule) and
+    ``occ_dtype``, the map dtype's name (``"bfloat16"`` or
+    ``"float32"``). Pass ``levels`` explicitly: it is what the JAX
+    constructor made of ``active_cap_frac``/``tri_cap_frac``. Unknown
+    keys raise, so that a setting cannot be dropped on the way.
+    """
+    attrs = dict(attrs)
+    unknown = set(attrs) - set(FUSED_SENSOR_SETTINGS) - {"occ_dtype"}
+    if unknown:
+        raise ValueError(f"unknown fused-sensor settings: {sorted(unknown)}")
+    out = {k: attrs[k] for k in FUSED_SENSOR_SETTINGS if k in attrs}
+    if "levels" in out:
+        out["levels"] = [(float(a), float(t)) for a, t in out["levels"]]
+    if "occ_dtype" in attrs:
+        name = str(attrs["occ_dtype"])
+        if name not in ("bfloat16", "float32"):
+            raise ValueError(f"occlusion dtype {name!r}: the port stores "
+                             "bfloat16 or float32")
+        out["occ_dtype"] = getattr(torch, name)
+    return out

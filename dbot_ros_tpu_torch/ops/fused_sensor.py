@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +33,8 @@ from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
 
 _TINY = 1e-30
 LANES = 128
+# the reference's lineage-gather mode names; all select kernels.lineage_gather
+LINEAGE_MODES = ("grouped", "windowed", "take", "pallas")
 
 
 def _round_up(x, m):
@@ -214,48 +217,65 @@ class FusedSensor:
     (n_pad,) per-pixel staleness in frame units) when the chain has
     g = p_oo − p_ov >= 0, else the raw map.
 
-    **In place:** on the compacted levels the selected pixels' rows are
-    scattered into the *input* map ``q``, which is also returned; callers
-    must not hold the old map. With ``commit=False`` (the non-final
-    coordinate blocks of a multi-object step) the map is left untouched
-    and the input leaf is returned.
+    **In place:** with the lazy leaf and ``merge="scatter"`` (the
+    default), the compacted levels scatter the selected pixels' rows into
+    the *input* map ``q``, which is also returned; callers must not hold
+    the old map. ``merge="select"`` instead gathers the posterior rows
+    back to every pixel and selects them into a *new* map (the input map
+    is left as it was). With ``commit=False`` (the non-final coordinate
+    blocks of a multi-object step) the map is left untouched and the
+    input leaf is returned, on every route.
 
     Compaction ladder (``levels``, tightest first, default
-    ``[(1/12, 0.2), (0.5, 0.75)]``): pixels whose candidates are all the
-    degenerate triangle are misses for every particle, so each level runs
-    the kernel on at most ``pcap`` selected pixels and ``tcap`` packed
-    triangles and adds the rest back as a particle-independent constant.
-    The level is picked by one host read of (n_active, n_uniq) per frame.
-    Exact at every level. With g < 0 (no lazy ages) every frame runs the
-    full level, which the ladder's levels equal.
+    ``[(1/12, 0.2), (0.5, 0.75)]``; ``active_cap_frac`` and
+    ``tri_cap_frac`` define one level where ``levels`` is not given):
+    pixels whose candidates are all the degenerate triangle are misses
+    for every particle, so each level runs the kernel on at most ``pcap``
+    selected pixels and ``tcap`` packed triangles and adds the rest back
+    as a particle-independent constant. The level is picked by one host
+    read of (n_active, n_uniq) per frame and recorded in ``last_level``
+    (an index into :meth:`caps`; ``len(caps)`` is the full level). Exact
+    at every level. A raw map (g < 0, or a raw leaf from the caller)
+    takes the eager branch on a compacted level: the selected rows go
+    through the kernel, the whole map is propagated in float32 and cast
+    once, and the rows are written into that new map.
 
-    ``device`` defaults to the camera's; meshes and parameters are moved
-    there. The barycentric slack is always the automatic one.
+    Candidates come from one raycast per object at the *unweighted* mean
+    of its particles, or with ``reference_poses=R > 1`` at the R
+    index-strided particles ``(r·P)//R`` (one per block of a
+    multi-hypothesis cloud, whose mean is a ghost pose), min-combined.
+    The barycentric slack of the inside-test is ``bary_slack`` when
+    given (``0.0``: exact), else the automatic rule (``bary_slack_px``
+    pixels of footprint at the cloud's depth, ops/slack.py).
 
-    ``lineage_gather`` accepts the reference's ``"take"`` and ``"pallas"``
-    so that its configs keep loading; both are the same function here
-    (``kernels.lineage_gather``). Not ported: the TPU-only ``"grouped"``
-    and ``"windowed"`` modes, ``merge="select"`` (only ``"scatter"``),
-    and the reference's experiment options ``active_cap_frac``,
-    ``tri_cap_frac``, a fixed ``bary_slack`` and ``reference_poses``.
+    ``lineage_gather`` takes the reference's four mode names; all select
+    the port's one kernel (``kernels.lineage_gather``): they compute the
+    same function, and only their TPU implementations differ.
+    ``interpret`` names Pallas's interpreter, which has no counterpart
+    here (a CPU tensor takes the kernels' plain versions): any value but
+    None raises. ``device`` defaults to the camera's; meshes and
+    parameters are moved there.
     """
 
     def __init__(self, meshes, camera, bp, op, frame_rate=30.0,
-                 num_candidates=2, radius=2, nb=64, levels=None,
-                 lineage_gather="take", bary_slack_px=0.25,
-                 merge="scatter", occ_dtype=torch.bfloat16, device=None):
+                 num_candidates=2, radius=2, nb=64, interpret=None,
+                 active_cap_frac=None, tri_cap_frac=None, levels=None,
+                 lineage_gather="take", bary_slack=None,
+                 bary_slack_px=0.25, merge="scatter",
+                 occ_dtype=torch.bfloat16, reference_poses=1, device=None):
         from dbot_ros_tpu_torch.ops import slack as slack_mod
 
-        if lineage_gather not in ("take", "pallas"):
-            raise NotImplementedError(
-                f"lineage_gather={lineage_gather!r}: the 'grouped' and "
-                "'windowed' modes are TPU workarounds that are never "
-                "ported (ROADMAP queue A item 13); 'take' and 'pallas' "
-                "both select the port's one lineage-gather kernel")
-        if merge != "scatter":
-            raise NotImplementedError(
-                f"merge={merge!r}: only 'scatter' is ported "
-                "(ROADMAP queue A, the fused sensor's A/B paths)")
+        if interpret is not None:
+            raise ValueError(
+                f"interpret={interpret!r}: Pallas's interpreter has no "
+                "counterpart in the port; a CPU tensor takes the kernels' "
+                "plain PyTorch versions, a CUDA tensor the kernels")
+        if lineage_gather not in LINEAGE_MODES:
+            raise ValueError(f"unknown lineage_gather: {lineage_gather!r}")
+        if merge not in ("scatter", "select"):
+            raise ValueError(f"unknown merge mode: {merge!r}")
+        self.lineage_gather = lineage_gather
+        self.merge = merge
         self.device = torch.device(device if device is not None
                                    else camera.rays.device)
         meshes = [meshes] if isinstance(meshes, TriangleMesh) else meshes
@@ -264,7 +284,12 @@ class FusedSensor:
         self.bp = _params_to(bp, self.device)
         self.op = _params_to(op, self.device)
         if levels is None:
-            levels = [(1.0 / 12.0, 0.2), (0.5, 0.75)]
+            if active_cap_frac is not None or tri_cap_frac is not None:
+                levels = [(1.0 if active_cap_frac is None
+                           else active_cap_frac,
+                           1.0 if tri_cap_frac is None else tri_cap_frac)]
+            else:
+                levels = [(1.0 / 12.0, 0.2), (0.5, 0.75)]
         self.levels = [(float(a), float(t)) for a, t in levels]
         self._pack_M = [pack_matrix(m) for m in self.meshes]
         K = len(self.meshes)
@@ -278,12 +303,15 @@ class FusedSensor:
         self.num_candidates = num_candidates
         self.radius = radius
         self.nb = nb
+        self.reference_poses = int(reference_poses)
+        self.bary_slack = None if bary_slack is None else float(bary_slack)
         self.bary_slack_px = float(bary_slack_px)
         self._min_median_edge = slack_mod.median_edge(self.meshes)
         self._fx = float(self.camera.camera_matrix[0, 0])
         self.occ_dtype = occ_dtype
         g = float(self.op.p_occluded_occluded - self.op.p_occluded_visible)
         self._lazy = g >= 0.0
+        self.last_level = None
 
     def _pads(self, num_particles):
         return (particle_pad(num_particles),
@@ -382,27 +410,39 @@ class FusedSensor:
     def union_triangles(self) -> int:
         return sum(m.padded_triangles for m in self.meshes)
 
+    def reference_states(self, states, k):
+        """The poses (R, 7) object ``k`` is raycast at in the candidate
+        pass: the unweighted mean of its particles, or with
+        ``reference_poses=R > 1`` particles ``(r·P)//R``, r = 0..R−1 (P
+        the real particle count)."""
+        R, P = self.reference_poses, states.shape[0]
+        if R <= 1:
+            return se3.states_mean(states[:, k])[None, :7]
+        return states[[(r * P) // R for r in range(R)], k, :7]
+
     def candidates(self, states):
         """Reference pass → per-pixel global candidate triangle ids (N, K).
 
-        Each object is raycast at the *unweighted* mean of its particles;
-        depths are min-combined into a union id image, which is dilated;
-        misses map to the union's degenerate last row.
+        Each object is raycast at each of its :meth:`reference_states`;
+        depths are min-combined in that order (a strictly nearer hit
+        wins, the earlier image keeps ties) into a union id image, which
+        is dilated; misses map to the union's degenerate last row.
         """
         from dbot_ros_tpu_torch.ops import deferred
 
         z_best = ids_best = None
         offset = 0
         for k, mesh in enumerate(self.meshes):
-            z_k, ids_k = deferred.raycast_ids(
-                mesh, se3.states_mean(states[:, k])[:7], self.camera.rays)
-            ids_k = torch.where(ids_k >= 0, ids_k + offset, -1)
-            if z_best is None:
-                z_best, ids_best = z_k, ids_k
-            else:
-                closer = z_k < z_best
-                z_best = torch.where(closer, z_k, z_best)
-                ids_best = torch.where(closer, ids_k, ids_best)
+            for ref in self.reference_states(states, k):
+                z_k, ids_k = deferred.raycast_ids(mesh, ref,
+                                                  self.camera.rays)
+                ids_k = torch.where(ids_k >= 0, ids_k + offset, -1)
+                if z_best is None:
+                    z_best, ids_best = z_k, ids_k
+                else:
+                    closer = z_k < z_best
+                    z_best = torch.where(closer, z_k, z_best)
+                    ids_best = torch.where(closer, ids_k, ids_best)
             offset += mesh.padded_triangles
         cand = deferred.candidate_ids(ids_best, self.camera.height,
                                       self.camera.width, self.radius,
@@ -494,18 +534,48 @@ class FusedSensor:
         return sel, uniq
 
     def __call__(self, states, occ, z_obs, dt, commit=True):
-        """One sensor call (see the class docstring)."""
+        """One sensor call (see the class docstring): :meth:`plan`, then
+        :meth:`apply`."""
+        return self.apply(self.plan(states, z_obs, dt), states, occ, z_obs,
+                          commit)
+
+    def plan(self, states, z_obs, dt) -> "SensorPlan":
+        """What a call decides before its device work: the candidate
+        pass, the model parameters and the ladder's level, with the one
+        host read of (n_active, n_uniq); sets ``last_level``."""
         from dbot_ros_tpu_torch.ops import slack as slack_mod
 
-        P = states.shape[0]
-        p_pad, n_pad = self._pads(P)
         cand = self.candidates(states)
         # dt in float32 frame units, as the reference's traced dt
         dtf = float(np.float32(dt) * np.float32(self.frame_rate))
-        slack = slack_mod.auto_bary_slack(
-            slack_mod.cloud_depth(states[..., 2]), 1.0 / self._fx,
-            self._min_median_edge, self.bary_slack_px)
+        slack = self.bary_slack
+        if slack is None:
+            slack = slack_mod.auto_bary_slack(
+                slack_mod.cloud_depth(states[..., 2]), 1.0 / self._fx,
+                self._min_median_edge, self.bary_slack_px)
         params_vec = make_params_vec(self.bp, self.op, dtf, slack)
+        caps = self.caps(z_obs.shape[0])
+        book, level = None, len(caps)
+        if caps:
+            book = self.selection(cand)
+            n_active, n_uniq = (
+                int(v) for v in torch.stack([book["n_active"],
+                                             book["n_uniq"]]).tolist())
+            level = next((i for i, (pcap, tcap) in enumerate(caps)
+                          if (pcap is None or n_active <= pcap)
+                          and (tcap is None or n_uniq < tcap)), len(caps))
+        self.last_level = level
+        return SensorPlan(cand, params_vec, dtf, level, book)
+
+    def apply(self, plan: "SensorPlan", states, occ, z_obs, commit=True):
+        """The device work of a call at ``plan.level`` (the full level when
+        it is ``len(caps)``). Reads nothing back to the host, so a CUDA
+        graph can hold it."""
+        from dbot_ros_tpu_torch.models import occlusion as occ_mod
+
+        P = states.shape[0]
+        p_pad, n_pad = self._pads(P)
+        cand, params_vec, dtf = plan.cand, plan.params_vec, plan.dtf
         N = z_obs.shape[0]
         rays = self.camera.rays
         lazy = isinstance(occ, (tuple, list))
@@ -515,27 +585,20 @@ class FusedSensor:
                 "p_occluded_occluded >= p_occluded_visible")
         q, age = self._unpack_occ(occ)
 
-        def full():
+        def whole_map(gt, cand_use):
+            # the kernel on every pixel: it ages the rows itself
             ll, q_post = fused_loglik_packed(
-                self.pack_full(states, p_pad), q, z_obs, cand, rays,
-                params_vec, P, nb=self.nb,
+                gt, q, z_obs, cand_use, rays, params_vec, P, nb=self.nb,
                 ages=None if age is None else age[:N])
+            if not commit:
+                return ll, occ
             return ll, (q_post, torch.zeros_like(age)) if lazy else q_post
 
         caps = self.caps(N)
-        if not caps or not lazy:
-            return full()
-        book = self.selection(cand)
-        n_active, n_uniq = (
-            int(v) for v in torch.stack([book["n_active"],
-                                         book["n_uniq"]]).tolist())
-        for pcap, tcap in caps:
-            if ((pcap is None or n_active <= pcap)
-                    and (tcap is None or n_uniq < tcap)):
-                break
-        else:
-            return full()
-
+        if plan.level == len(caps):
+            return whole_map(self.pack_full(states, p_pad), cand)
+        book = plan.book
+        pcap, tcap = caps[plan.level]
         sel, uniq = self.level_indices(book, pcap, tcap, N)
         if tcap is not None:
             gt = self.pack_selected(states, p_pad, uniq)
@@ -545,10 +608,7 @@ class FusedSensor:
             gt = self.pack_full(states, p_pad)
             cand_use = cand
         if pcap is None:
-            ll, q_post = fused_loglik_packed(
-                gt, q, z_obs, cand_use, rays, params_vec, P, nb=self.nb,
-                ages=age[:N])
-            return ll, (q_post, torch.zeros_like(age))
+            return whole_map(gt, cand_use)
 
         # off-silhouette loglik of the unselected pixels (the kernel's
         # background branch), plus the reference's pixel-padding constant
@@ -570,13 +630,41 @@ class FusedSensor:
         occ_sel = kernels.gather_pixel_rows(q, sel32)
         ll, occ_post = fused_loglik_packed(
             gt, occ_sel, z_obs[sel], cand_use[sel], rays[sel], params_vec,
-            P, nb=self.nb, ages=age[sel])
+            P, nb=self.nb, ages=None if age is None else age[sel])
         if not commit:
             return ll + scalar, occ
+        if not lazy:
+            # eager: every other pixel's prior propagates over dt, in
+            # float32 and cast once; all pcap selected rows are written
+            prop = occ_mod.propagate(q.float(), self.op, dtf).to(q.dtype)
+            return ll + scalar, kernels.scatter_pixel_rows(prop, occ_post,
+                                                           sel32)
         selm = torch.cat([sel_mask, sel_mask.new_zeros((n_pad - N,))])
         age_out = torch.where(selm, 0.0, age + dtf)
-        q_out = kernels.scatter_pixel_rows(q, occ_post, sel32)
+        if self.merge == "scatter":
+            q_out = kernels.scatter_pixel_rows(q, occ_post, sel32)
+        else:
+            # inverse row gather of every pixel's posterior row (an
+            # unselected pixel's slot names some row: masked) and one
+            # select into a new map
+            slot = torch.cat([torch.clamp(book["slot"], 0, pcap - 1),
+                              book["slot"].new_zeros((n_pad - N,))])
+            vals = kernels.gather_pixel_rows(occ_post,
+                                             slot.to(torch.int32))
+            q_out = torch.where(selm[:, None], vals, q)
         return ll + scalar, (q_out, age_out)
+
+
+class SensorPlan(NamedTuple):
+    """One call's decisions (:meth:`FusedSensor.plan`): the candidate ids
+    (N, K), the kernel's parameters (16,), dt in frame units, the ladder
+    level (``len(caps)``: the full level) and the compaction bookkeeping
+    (:meth:`FusedSensor.selection`; None without a ladder)."""
+    cand: torch.Tensor
+    params_vec: torch.Tensor
+    dtf: float
+    level: int
+    book: Optional[dict]
 
 
 def _params_to(params, device):

@@ -276,6 +276,77 @@ def test_pixel_rows_match_plain(cuda):
         kernels.scatter_pixel_rows(a, shifted, sel)
 
 
+def sensor_frames(dev, frames=3, P=1000, **opts):
+    """Three sensor calls of the small scene on ``dev`` with ``opts``:
+    (logliks (frames, P) on the CPU, the (P, N) occlusion view on the CPU,
+    the levels taken)."""
+    K = np.array([[60.0, 0, 20], [0, 60.0, 15], [0, 0, 1.0]])
+    cam = camera.make_camera(K, 30, 40, device=dev)
+    m = mesh.tagged_l_mesh(device=dev)
+    bp = beam.make_beam_params(model_sigma=0.005, sigma_factor=0.0,
+                               device=dev)
+    op = occlusion.make_occlusion_params(
+        *opts.pop("occlusion", (0.1, 0.7)), device=dev)
+    sensor = fs.make_fused_sensor(m, cam, bp, op, device=dev, **opts)
+    occ = sensor.init_occlusion(P, 0.2)
+    lls, levels = [], []
+    for f in range(frames):
+        _, _, states, z = small_scene(torch.device("cpu"), P, seed=f)
+        states[:, 0, 0] += 0.003 * f
+        ll, occ = sensor(states.to(dev), occ, z.to(dev), 1.0 / 30.0)
+        lls.append(ll.cpu())
+        levels.append(sensor.last_level)
+    return (torch.stack(lls), sensor.occlusion_as_pn(occ, P).cpu(), levels,
+            len(sensor.caps(cam.num_pixels)))
+
+
+def assert_card_like_cpu(card, cpu):
+    """The whole sensor on the card against the CPU path: candidate
+    raycasts and constant products round differently on the two devices,
+    so a silhouette-edge pixel can flip for a particle (chip_smoke.py's
+    sensor phase holds the same share)."""
+    rel = (card[0] - cpu[0]).abs() / cpu[0].abs().clamp_min(1.0)
+    assert (rel <= 1e-4).float().mean().item() >= 0.98
+    assert (card[1] - cpu[1]).abs().mean().item() <= 1e-3
+    assert card[2] == cpu[2]
+
+
+def test_select_merge_matches_scatter_and_cpu(cuda):
+    """``merge="select"`` on the card: the loglik and map of
+    ``"scatter"`` bit for bit (the same fused kernel; the rows move
+    exactly), two row gathers a frame, and close to the CPU path."""
+    gathers = kernels.gather_pixel_rows.launches
+    select = sensor_frames(cuda, merge="select")
+    assert kernels.gather_pixel_rows.launches - gathers == 6
+    scatter = sensor_frames(cuda)
+    assert all(lv < select[3] for lv in select[2])
+    assert torch.equal(select[0], scatter[0])
+    assert torch.equal(select[1], scatter[1])
+    assert_card_like_cpu(select, sensor_frames(torch.device("cpu"),
+                                               merge="select"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eager_branch_matches_full_level_and_cpu(cuda, dtype):
+    """g < 0 (a raw map) on a compacted level on the card: the row
+    kernels launch, and the result equals the full level's (loglik rtol
+    2e-5 + 1e-2 nats; the map 1e-5 in float32, one bf16 step in
+    bfloat16) and the CPU path's."""
+    opts = dict(occlusion=(0.4, 0.1), occ_dtype=dtype)
+    rows = (kernels.gather_pixel_rows.launches,
+            kernels.scatter_pixel_rows.launches)
+    eager = sensor_frames(cuda, **opts)
+    assert (kernels.gather_pixel_rows.launches - rows[0],
+            kernels.scatter_pixel_rows.launches - rows[1]) == (3, 3)
+    assert all(lv < eager[3] for lv in eager[2])
+    full = sensor_frames(cuda, levels=[(1.0, 1.0)], **opts)
+    assert full[2] == [0, 0, 0] and full[3] == 0
+    torch.testing.assert_close(eager[0], full[0], rtol=2e-5, atol=1e-2)
+    torch.testing.assert_close(eager[1], full[1], rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 4e-3)
+    assert_card_like_cpu(eager, sensor_frames(torch.device("cpu"), **opts))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("row_bytes", [16, 20_224, 20_240])
 def test_gather_rows_edges(cuda, dtype, row_bytes):

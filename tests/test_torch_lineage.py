@@ -186,22 +186,26 @@ def test_gather_occlusion_clamps_and_takes_raw_maps():
     assert torch.equal(out[:, 40:], occ[:, 40:])
 
 
-@pytest.mark.parametrize("mode,ok", [("take", True), ("pallas", True),
-                                     ("grouped", False),
-                                     ("windowed", False)])
-def test_lineage_modes_of_the_reference(mode, ok):
-    """Configs written for the JAX package keep loading: its "take" and
-    "pallas" select the port's one kernel; the TPU workarounds raise."""
-    cam = camera.make_camera(K_CAM, *HW)
-    m = interop.mesh_from_numpy(fields(jmesh.box_mesh()))
-    from dbot_ros_tpu_torch.models import beam, occlusion
-    args = (m, cam, beam.make_beam_params(),
-            occlusion.make_occlusion_params())
-    if ok:
-        assert fs.make_fused_sensor(*args, lineage_gather=mode) is not None
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fs.make_fused_sensor(*args, lineage_gather=mode)
+@pytest.mark.parametrize("mode", ["take", "pallas", "grouped", "windowed"])
+def test_lineage_modes_of_the_reference(mode):
+    """Every mode name of the reference builds, and a gather through each
+    gives the map the JAX sensor's gather of that mode gives (its TPU
+    implementations differ; the port's one kernel serves all four)."""
+    js, ps = sensors("bf16", mode)
+    assert ps.lineage_gather == mode
+    N = HW[0] * HW[1]
+    g = np.random.default_rng(8)
+    occ_pn = g.uniform(size=(P, N)).astype(np.float32)
+    jleaf = jrp.occ_to_kernel(jnp.asarray(occ_pn)).astype(jnp.bfloat16)
+    pleaf = interop.occlusion_from_jax(occ_pn, P, N,
+                                       occ_dtype=torch.bfloat16)
+    par = parents("sorted")
+    got = ps.gather_occlusion(pleaf, torch.as_tensor(par).long())
+    np.testing.assert_array_equal(
+        ps.occlusion_as_pn(got, P).float().numpy(),
+        np.asarray(js.occlusion_as_pn(
+            js.gather_occlusion(jleaf, jnp.asarray(par)), P), np.float32))
+    assert torch.equal(got[:, :P], pleaf[:, torch.as_tensor(par).long()])
 
 
 def test_rbcpf_resampling_goes_through_the_sensor_gather():

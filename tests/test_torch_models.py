@@ -209,14 +209,16 @@ def test_sensor_factory_backends():
     assert callable(deferred) and deferred.last_particle_chunk is None
     with pytest.raises(ValueError):
         sensor.make_rb_sensor(m, cam, bp, op, backend="opengl")
-    # the reference's "pallas" lineage mode selects the port's one kernel;
-    # its TPU workarounds stay refused
-    assert isinstance(sensor.make_rb_sensor(
-        m, cam, bp, op, backend="pallas", lineage_gather="pallas"),
-        fs.FusedSensor)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sensor.make_rb_sensor(m, cam, bp, op, backend="pallas",
-                              lineage_gather="windowed")
-    with pytest.raises(NotImplementedError):
-        sensor.make_rb_sensor(m, cam, bp, op, backend="pallas",
-                              merge="select")
+    # every lineage mode name and both merges of the reference build (the
+    # modes select the port's one kernel); unknown names and Pallas's
+    # interpreter raise
+    for opts in (dict(lineage_gather="pallas"),
+                 dict(lineage_gather="windowed"), dict(merge="select")):
+        s = sensor.make_rb_sensor(m, cam, bp, op, backend="pallas", **opts)
+        assert isinstance(s, fs.FusedSensor)
+        assert all(getattr(s, k) == v for k, v in opts.items())
+    for opts, match in ((dict(merge="bogus"), "merge"),
+                        (dict(lineage_gather="bogus"), "lineage_gather"),
+                        (dict(interpret=True), "interpreter")):
+        with pytest.raises(ValueError, match=match):
+            sensor.make_rb_sensor(m, cam, bp, op, backend="pallas", **opts)
