@@ -45,6 +45,23 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
 6. profile: ``torch.profiler`` over 10 ``track`` calls — device busy ms
    per step, idle share, kernels per step, the largest kernels (the full
    table goes to ``build/profile_step.txt``);
+6b. graph: the compiled step. Each tracker's ``track`` replays CUDA
+   graphs by default (``utils/graphs.py``; every phase here but this one
+   runs that way); this phase holds it against the eager step
+   (``capture=False``) on six paths: the slice, the two objects below, a
+   4-island trial (the truth and three hypotheses 4-8 mm off, a trial
+   that outlasts the phase), the Gaussian tracker at 3 and at 6
+   iterations, and its frozen trial step (the same four hypotheses). A
+   captured and an eager tracker with the same seed run the same 12
+   frames in lockstep: poses and every leaf of the belief (all islands'
+   or hypotheses' in a trial) must be equal bit for bit, the kernels'
+   launches per frame equal, the captured run's position RMSE under 1
+   cm. Prints the largest differences, the launches per frame, ``track``
+   median and p90 of both timed in turns (captured, eager, eager,
+   captured), from ``torch.profiler`` the device busy ms, kernels, host
+   ops, copies and waits per step and the idle share of both (tables in
+   ``build/profile_graph/``), the number of graphs, the seconds their
+   captures took and the memory their pool added;
 7. objects: two tracked objects at the same width: the slice's sphere
    and the eval suite's ``box_mesh(0.05, 0.07, 0.03)``, which crosses in
    front of the sphere (its centre 8 cm nearer, partly hiding it over
@@ -168,9 +185,10 @@ plain array code too): their launch counts are printed and are zero.
 The kernels line gives each kernel's launches in the slice
 (``launches``), in the live phase (``live_launches``), in the scale
 phase's one-rank run (``scale_launches``), in the objects phase's 60
-frames (``objects_launches``) and in the options phase's checks
-(``options_launches``), each counted from 0 just before that path and
-read just after.
+frames (``objects_launches``), in the options phase's checks
+(``options_launches``) and in the graph phase's captured runs
+(``graph_launches``), each counted from 0 just before that path and read
+just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -333,6 +351,16 @@ OPTIONS_NEG_CHAIN = (0.4, 0.1)
 SLACK0_RTOL, SLACK0_ATOL = 2e-4, 0.05
 SLACK0_EDGE = 1e-4
 
+# graph phase: frames each path runs captured and eager in lockstep, the
+# trial's hypotheses (offsets of the truth in x, m) and the profile tables
+GRAPH_FRAMES = 12
+GRAPH_TIMING_RUNS = 10
+GRAPH_TRIAL_OFFSETS_M = (0.0, 0.004, -0.004, 0.008)
+GRAPH_TRIAL_FRAMES = 1000
+# the captured step must equal the eager one bit for bit (the same kernels
+# on the same inputs): poses and every leaf of the belief
+GRAPH_ATOL = 0.0
+GRAPH_PROFILE_DIR = BUILD_DIR / "profile_graph"
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
                      "dbot_ros_tpu/ops/raycast_pallas.py:192"),
@@ -1269,6 +1297,169 @@ def phase_profile(tracker, depth, table_path):
 
 
 # ---------------------------------------------------------------------------
+# graph: the compiled step (CUDA-graph replays) against the eager step
+# ---------------------------------------------------------------------------
+
+def belief_leaves(tracker):
+    """Every tensor of the tracker's belief, or of all its trial's."""
+    beliefs = (tracker._trial["beliefs"] if tracker._trial
+               else [tracker.belief])
+    out = []
+    for b in beliefs:
+        for f in dataclasses.fields(b):
+            v = getattr(b, f.name)
+            out += list(v) if isinstance(v, (tuple, list)) else [v]
+    return [v for v in out if v is not None]
+
+
+def graph_lockstep(make, init, frames):
+    """A captured and an eager tracker (``make(capture)``, ``init``) over
+    the same ``frames`` in lockstep: the largest difference of the poses
+    and of the beliefs after each frame, each one's launches per frame,
+    and the captured one's position RMSE."""
+    trs = {c: make(c) for c in (True, False)}
+    for tr in trs.values():
+        init(tr)
+    per_frame = {True: [], False: []}
+    d_pose = d_belief = 0.0
+    err = []
+    for frame in frames:
+        poses = {}
+        for c, tr in trs.items():
+            before = {k: w.launches for k, w in WRAPPERS.items()}
+            poses[c], _ = tr.track(frame.depth)
+            per_frame[c].append({k: w.launches - before[k]
+                                 for k, w in WRAPPERS.items()})
+        d_pose = max(d_pose, float((poses[True] - poses[False]).abs().max()))
+        for a, b in zip(belief_leaves(trs[True]), belief_leaves(trs[False])):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  "graph: captured and eager beliefs differ in layout")
+            d_belief = max(d_belief,
+                           float((a.float() - b.float()).abs().max()))
+        p = poses[True].reshape(-1, 7).cpu().numpy()
+        truth = np.asarray(frame.ground_truth).reshape(-1, 7)
+        err.append(np.linalg.norm(p[:, :3] - truth[:, :3], axis=1))
+    rmse = np.sqrt(np.mean(np.square(err), axis=0)).tolist()
+    return trs, per_frame, d_pose, d_belief, rmse
+
+
+def graph_path(name, make, init, frames, depth):
+    """One path of the graph phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    trs, per_frame, d_pose, d_belief, rmse = graph_lockstep(make, init,
+                                                            frames)
+    launches = {k: sum(f[k] for f in per_frame[True]) for k in WRAPPERS}
+    check(per_frame[True] == per_frame[False],
+          f"graph {name}: launches per frame under replay "
+          f"{per_frame[True]} differ from the eager step's "
+          f"{per_frame[False]}")
+    check(d_pose <= GRAPH_ATOL and d_belief <= GRAPH_ATOL,
+          f"graph {name}: captured against eager: poses {d_pose}, "
+          f"belief {d_belief}")
+    check(max(rmse) < RMSE_LIMIT_M,
+          f"graph {name}: position RMSE {rmse} m >= {RMSE_LIMIT_M}")
+    stats = {"programs": len(trs[True].programs)}
+    for prog in trs[True].programs.values():
+        for k, v in prog.stats().items():
+            stats[k] = stats.get(k, 0) + v
+    # timed in turns (captured, eager, eager, captured), then profiled
+    turns = [(c, track_ms(trs[c], depth, runs=GRAPH_TIMING_RUNS))
+             for c in (True, False, False, True)]
+    out = {"frames": len(frames), "position_rmse_m": rmse,
+           "max_abs_diff_poses": d_pose, "max_abs_diff_belief": d_belief,
+           "launches": launches,
+           "launches_per_frame": {
+               json.dumps(f, sort_keys=True): per_frame[True].count(f)
+               for f in per_frame[True]},
+           **stats}
+    GRAPH_PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    for c, mode in ((True, "captured"), (False, "eager")):
+        pair = [t for k, t in turns if k == c]
+        out[mode] = {"track_ms_median": statistics.mean(
+            t["track_ms_median"] for t in pair),
+            "track_ms_median_by_turn": [t["track_ms_median"] for t in pair],
+            "track_ms_p90": statistics.mean(t["track_ms_p90"] for t in pair),
+            "profile": profile_steps(
+                trs[c], depth, GRAPH_PROFILE_DIR / f"{name}_{mode}.txt")}
+    out["median_ratio_eager_to_captured"] = (
+        out["eager"]["track_ms_median"] / out["captured"]["track_ms_median"])
+    out["seconds"] = time.perf_counter() - t0
+    del trs
+    return out, launches
+
+
+def trial_init(hypotheses, **kw):
+    """``initialize`` with a trial that outlasts the phase (the first
+    hypothesis, the truth, is published)."""
+    def init(tr):
+        tr.initialize(hypotheses[0], hypotheses=hypotheses,
+                      trial_frames=GRAPH_TRIAL_FRAMES, **kw)
+    return init
+
+
+def phase_graph(dev, card):
+    """The compiled step against the eager step on each path (see the
+    module docstring): the slice, two objects, a 4-island trial, the
+    Gaussian tracker at 3 and 6 iterations and its frozen trial."""
+    cam, mesh, traj = slice_scene()
+    ocam, omeshes, otraj = objects_scene()
+    slack = box_slack()
+
+    def frames_of(meshes, c, tr):
+        src = sources.SyntheticSource(meshes, c.to(dev), tr,
+                                      GRAPH_FRAMES + 1, seed=SEED)
+        frames = list(src)
+        return frames[:GRAPH_FRAMES], frames[GRAPH_FRAMES].depth
+
+    frames, depth = frames_of([mesh], cam, traj)
+    oframes, odepth = frames_of(omeshes, ocam, otraj)
+    hyp = np.repeat(traj(0)[None], len(GRAPH_TRIAL_OFFSETS_M), axis=0)
+    hyp[:, 0, 0] += GRAPH_TRIAL_OFFSETS_M
+
+    def particle(conf, meshes, c):
+        return lambda capture: ParticleTracker(
+            conf, meshes=meshes, camera=c, device=dev, capture=capture)
+
+    def gaussian(conf):
+        return lambda capture: GaussianTracker(
+            conf, meshes=[mesh], camera=cam, device=dev, capture=capture)
+
+    first = frames[0].depth
+    paths = {
+        "slice": (particle(slice_config(), [mesh], cam),
+                  lambda tr: tr.initialize(traj(0)), frames, depth),
+        "objects": (particle(objects_config(slack), omeshes, ocam),
+                    lambda tr: tr.initialize(otraj(0)), oframes, odepth),
+        "trial_4_islands": (particle(slice_config(), [mesh], cam),
+                            trial_init(hyp), frames, depth),
+        "rgf_3": (gaussian(rgf_config()),
+                  lambda tr: tr.initialize(traj(0), first_frame=first),
+                  frames, depth),
+        "rgf_6": (gaussian(rgf_config(update_iterations=6,
+                                      trust_sigma=1.5)),
+                  lambda tr: tr.initialize(traj(0), first_frame=first),
+                  frames, depth),
+        "rgf_3_trial_4": (gaussian(rgf_config()),
+                          trial_init(hyp[:, 0], first_frame=first),
+                          frames, depth),
+    }
+    out, total = {}, {k: 0 for k in WRAPPERS}
+    for name, (make, init, fr, d) in paths.items():
+        out[name], launches = graph_path(name, make, init, fr, d)
+        for k in WRAPPERS:
+            total[k] += launches[k]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    emit({"phase": "graph", "nvidia_smi": card, "particles": P,
+          "pixels": cam.num_pixels, "triangles": mesh.padded_triangles,
+          "tolerance": GRAPH_ATOL, "paths": out,
+          "graph_launches": total})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # objects: two tracked objects at the slice's width
 # ---------------------------------------------------------------------------
 
@@ -1977,12 +2168,18 @@ def rgf_against_cpu(dev, cam, mesh, traj):
 
 def steady_coverage(tracker, depth):
     """The share of the exact raycast's hits that the tracker's own sigma
-    renderer covers on the first sigma cloud of one more tracked frame."""
+    renderer covers on the first sigma cloud of one more tracked frame.
+    The frame is stepped by an eager twin from the tracker's belief: a
+    graph replay calls no Python, so the render cannot be watched
+    there."""
+    twin = GaussianTracker(tracker.config, meshes=tracker.meshes,
+                           camera=tracker.camera, device=tracker.device,
+                           capture=False)
+    twin.restore(tracker.belief)
     seen = []
-    render = tracker.render_fn
-    tracker.render_fn = lambda poses: (seen.append(poses), render(poses))[1]
-    tracker.track(depth)
-    tracker.render_fn = render
+    render = twin.render_fn
+    twin.render_fn = lambda poses: (seen.append(poses), render(poses))[1]
+    twin.track(depth)
     poses = seen[0]
     m, c = tracker.meshes[0], tracker.camera
     hit = torch.isfinite(render(poses))
@@ -2831,6 +3028,7 @@ def main(argv=None):
     phase_sensor(dev)
     launches, tracker, depth = phase_slice(dev)
     phase_profile(tracker, depth, PROFILE_TABLE)
+    graph_launches = phase_graph(dev, card)
     objects_launches = phase_objects(dev, tracker, depth)
     del tracker
     options_launches = phase_options(dev)
@@ -2846,6 +3044,7 @@ def main(argv=None):
          "scale_launches": scale_launches[name],
          "objects_launches": objects_launches[name],
          "options_launches": options_launches[name],
+         "graph_launches": graph_launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},

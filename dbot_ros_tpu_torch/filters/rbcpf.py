@@ -38,6 +38,16 @@ class ParticleBelief:
     def num_particles(self) -> int:
         return self.states.shape[0]
 
+    def clone(self) -> "ParticleBelief":
+        """A copy that owns its tensors: a tracker's step overwrites the
+        belief before it (utils/graphs.py), so a belief kept across a
+        ``track`` call is a copy."""
+        occ = self.occlusion
+        occ = (type(occ)(x.clone() for x in occ)
+               if isinstance(occ, (tuple, list)) else occ.clone())
+        return ParticleBelief(self.states.clone(), self.log_weights.clone(),
+                              occ)
+
     @property
     def num_objects(self) -> int:
         return self.states.shape[1]
@@ -109,7 +119,7 @@ def init_belief(initial_poses, num_particles: int, num_pixels: int,
                           occlusion=occ)
 
 
-_NEVER_RESAMPLE_KL = 1e8
+NEVER_RESAMPLE_KL = 1e8
 
 
 def _maybe_resample(log_w, states, occ, old_loglik, max_kl, occ_gather,
@@ -122,7 +132,7 @@ def _maybe_resample(log_w, states, occ, old_loglik, max_kl, occ_gather,
     Indices are clamped into range (the reference's ``mode="clip"``).
     """
     kl = rs.kl_to_uniform(log_w)
-    if max_kl >= _NEVER_RESAMPLE_KL:
+    if max_kl >= NEVER_RESAMPLE_KL:
         return ((states, occ, old_loglik), log_w,
                 torch.zeros((), dtype=torch.bool, device=log_w.device), kl)
     p = log_w.shape[-1]
@@ -141,60 +151,97 @@ def _default_gather(occ, idx):
     return occ.index_select(0, idx)
 
 
+def draw_noise(noise: Sequence[BlockNoise], generator=None):
+    """Fill ``noise`` (one :class:`BlockNoise` of buffers per block) in
+    place from ``generator``, in the order :func:`rbcpf_step` draws: per
+    block ``e1``, ``e2``, then ``u`` (a block whose ``u`` is None draws
+    none, as a step whose ``max_kl_divergence`` never resamples). A step
+    that replays the filled buffers equals one that draws from the same
+    generator, and the generator ends where that step leaves it."""
+    for nb in noise:
+        nb.e1.normal_(generator=generator)
+        nb.e2.normal_(generator=generator)
+        if nb.u is not None:
+            nb.u.uniform_(generator=generator)
+    return noise
+
+
+def propose_block(states, b: int, dt, trans_params: TransitionParams,
+                  noise: Optional[BlockNoise] = None, generator=None):
+    """Block ``b``'s proposal: its poses drawn from the transition over
+    ``dt`` (``noise.e1``/``e2``, each drawn from ``generator`` when
+    None), the other blocks as they were; a new (P, K, 13) tensor."""
+    noise = noise if noise is not None else BlockNoise()
+    new_block = sample_transition(states[:, b], dt, trans_params,
+                                  e1=noise.e1, e2=noise.e2,
+                                  generator=generator)
+    states = states.clone()
+    states[:, b] = new_block
+    return states
+
+
+def weigh_block(belief: ParticleBelief, loglik, occ_post, old_loglik,
+                resampled, commit: bool, max_kl_divergence, occ_gather,
+                u=None, generator=None):
+    """The rest of a block after its sensor call: the telescoping weight
+    update and KL-triggered resampling of ``belief`` (its states the
+    block's proposal). The occlusion is the sensor's ``occ_post`` when
+    ``commit``, else the belief's. Returns (belief, old_loglik for the
+    next block, resampled so far, KL before resampling)."""
+    occ = occ_post if commit else belief.occlusion
+    log_w = belief.log_weights + loglik - old_loglik
+    (states, occ, old_loglik), log_w, did, kl = _maybe_resample(
+        log_w, belief.states, occ, loglik, max_kl_divergence, occ_gather,
+        u=u, generator=generator)
+    return (ParticleBelief(states=states, log_weights=log_w, occlusion=occ),
+            old_loglik, resampled | did, kl)
+
+
+def summarize(belief: ParticleBelief, loglik, resampled, kl) -> StepInfo:
+    """A step's :class:`StepInfo` from its final belief, the last block's
+    loglik, whether any block resampled and the last KL."""
+    ln, _ = rs.normalize_log_weights(belief.log_weights)
+    weights = torch.exp(ln)
+    return StepInfo(mean_state=se3.states_mean(belief.states, weights),
+                    ess=rs.effective_sample_size(belief.log_weights),
+                    kl=kl, resampled=resampled,
+                    mean_loglik=torch.sum(weights * loglik))
+
+
+def occlusion_gather(loglik_fn):
+    """The sensor's lineage gather of its occlusion leaf (its
+    ``gather_occlusion`` hook), else a row gather of a (P, N) map."""
+    return getattr(loglik_fn, "gather_occlusion", None) or _default_gather
+
+
 def rbcpf_step(belief: ParticleBelief, z_obs, loglik_fn: Callable,
                trans_params: TransitionParams, dt, max_kl_divergence=1.0,
                generator=None,
                noise: Optional[Sequence[BlockNoise]] = None):
     """One filter step (one depth frame) → (new belief, StepInfo).
 
-    Blocks run in object order; resampling may trigger after every block.
-    Only the last block's sensor call commits the occlusion posterior
+    Blocks run in object order (:func:`propose_block`, the sensor call,
+    :func:`weigh_block`); resampling may trigger after every block. Only
+    the last block's sensor call commits the occlusion posterior
     (``commit=False`` before it). Random numbers per block, in the
     reference's order: transition e1, e2, then the resampling u — taken
-    from ``noise[b]`` where given, else drawn from ``generator``.
+    from ``noise[b]`` where given, else drawn from ``generator``. ``dt``
+    is a number or a 0-d tensor (the trackers pass a device buffer).
     """
     num_objects = belief.num_objects
-    occ_gather = getattr(loglik_fn, "gather_occlusion", None) or \
-        _default_gather
-
-    states = belief.states
-    occ = belief.occlusion
-    log_w = belief.log_weights
-    old_loglik = torch.zeros_like(log_w)
-    resampled_any = torch.zeros((), dtype=torch.bool, device=log_w.device)
-    kl_last = torch.zeros((), device=log_w.device)
-    loglik = old_loglik
-
+    occ_gather = occlusion_gather(loglik_fn)
+    old_loglik = torch.zeros_like(belief.log_weights)
+    resampled = torch.zeros((), dtype=torch.bool,
+                            device=belief.log_weights.device)
     for b in range(num_objects):
         nb = noise[b] if noise is not None else BlockNoise()
-        new_block = sample_transition(states[:, b], dt, trans_params,
-                                      e1=nb.e1, e2=nb.e2,
-                                      generator=generator)
-        states = states.clone()
-        states[:, b] = new_block
-
-        update = b == num_objects - 1
-        loglik, occ_post = loglik_fn(states, occ, z_obs, dt, commit=update)
-        if update:
-            occ = occ_post
-
-        log_w = log_w + loglik - old_loglik
-        old_loglik = loglik
-
-        (states, occ, old_loglik), log_w, did, kl_last = _maybe_resample(
-            log_w, states, occ, old_loglik, max_kl_divergence, occ_gather,
+        states = propose_block(belief.states, b, dt, trans_params, nb,
+                               generator)
+        commit = b == num_objects - 1
+        loglik, occ_post = loglik_fn(states, belief.occlusion, z_obs, dt,
+                                     commit=commit)
+        belief, old_loglik, resampled, kl = weigh_block(
+            dataclasses.replace(belief, states=states), loglik, occ_post,
+            old_loglik, resampled, commit, max_kl_divergence, occ_gather,
             u=nb.u, generator=generator)
-        resampled_any = resampled_any | did
-
-    ln, _ = rs.normalize_log_weights(log_w)
-    weights = torch.exp(ln)
-    mean_state = se3.states_mean(states, weights)      # (K, 13)
-
-    new_belief = ParticleBelief(states=states, log_weights=log_w,
-                                occlusion=occ)
-    info = StepInfo(mean_state=mean_state,
-                    ess=rs.effective_sample_size(log_w),
-                    kl=kl_last,
-                    resampled=resampled_any,
-                    mean_loglik=torch.sum(weights * loglik))
-    return new_belief, info
+    return belief, summarize(belief, loglik, resampled, kl)

@@ -9,7 +9,10 @@ Port of ``dbot_ros_tpu/models/transition.py``. Per 3-dof group
 with integrated-Wiener noise: Cov[xi_v] = sigma² dt, Cov[xi_x] =
 sigma² dt³/3, Corr = √3/2. The noise enters as two standard-normal
 drivers ``e1``/``e2`` that callers may pass in (parity tests replay the
-JAX package's draws); absent, they are drawn from ``generator``.
+JAX package's draws); absent, they are drawn from ``generator``. ``dt``
+is a number or a 0-d tensor; the sampler works in float32 on the device,
+as the JAX step with ``dt`` traced (no host read, so a CUDA graph can
+hold it).
 """
 
 from __future__ import annotations
@@ -41,6 +44,15 @@ def make_transition_params(linear_acceleration_sigma=0.02,
                             f(angular_acceleration_sigma), f(damping))
 
 
+def as_dt(dt, device=None) -> torch.Tensor:
+    """``dt`` as a 0-d float32 tensor on ``device`` (default: its own): a
+    tensor is cast, a number becomes a fill on the device, never a copy
+    from the host."""
+    if isinstance(dt, torch.Tensor):
+        return dt.to(device=device, dtype=torch.float32)
+    return torch.full((), float(dt), dtype=torch.float32, device=device)
+
+
 def _damping_factors(params: TransitionParams, dt):
     gdt = params.damping * dt
     a = torch.exp(-gdt)
@@ -66,9 +78,10 @@ def sample_transition(states, dt, params: TransitionParams, e1=None,
 
     ``e1`` (velocity driver) and ``e2`` (extra position driver) are
     standard normals of shape ``states.shape[:-1] + (6,)``; each one not
-    given is drawn from ``generator`` (e1 first).
+    given is drawn from ``generator`` (e1 first). ``dt`` (seconds) is a
+    number or a 0-d tensor, taken as float32.
     """
-    dt = float(dt)
+    dt = as_dt(dt, states.device)
     mean = transition_mean(states, dt, params)
     shape = states.shape[:-1] + (6,)
     if e1 is None:
@@ -79,8 +92,8 @@ def sample_transition(states, dt, params: TransitionParams, e1=None,
                          device=states.device)
     sig = torch.cat([params.linear_acceleration_sigma.expand(3),
                      params.angular_acceleration_sigma.expand(3)])
-    sd_v = sig * math.sqrt(dt)
-    sd_x = sig * math.sqrt(dt ** 3 / 3.0)
+    sd_v = sig * torch.sqrt(dt)
+    sd_x = sig * torch.sqrt(dt ** 3 / 3.0)
 
     xi_v = sd_v * e1
     xi_x = sd_x * (_RHO * e1 + math.sqrt(1.0 - _RHO * _RHO) * e2)

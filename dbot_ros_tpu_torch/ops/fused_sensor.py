@@ -27,6 +27,7 @@ import torch
 
 from dbot_ros_tpu_torch.models.beam import BeamParams
 from dbot_ros_tpu_torch.models.occlusion import OcclusionParams
+from dbot_ros_tpu_torch.models.transition import as_dt
 from dbot_ros_tpu_torch.ops import kernels
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
@@ -133,25 +134,25 @@ def pack_constants(mesh: TriangleMesh, poses, p_pad: int, features=None,
 def make_params_vec(bp: BeamParams, op: OcclusionParams, dt_frames,
                     bary_slack=0.0):
     """Model parameters + occlusion-chain coefficients as (16,) f32 on
-    the parameters' device (no host read).
+    the parameters' device, with no copy from the host and no host read
+    (so a CUDA graph can hold it): ``dt_frames`` and ``bary_slack`` are
+    numbers or 0-d tensors on that device.
 
     The kernel ages the chain as ``sign(g)·exp(log|g|·(age + dt_frames))``;
     nonzero ages need g >= 0 (FusedSensor enables lazy aging only then).
     """
     g = op.p_occluded_occluded - op.p_occluded_visible
     pi = op.p_occluded_visible / torch.clamp_min(1.0 - g, 1e-12)
+    # as_dt: a number or a 0-d tensor → a 0-d float32 tensor, no copy
+    dt_frames = as_dt(dt_frames, g.device)
     gdt = torch.sign(g) * torch.pow(torch.abs(g), dt_frames)
     lg = torch.log(torch.clamp_min(torch.abs(g), 1e-30))
-
-    def f(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=g.device)
-
     return torch.stack([
         bp.model_sigma, bp.sigma_factor, bp.tail_weight, bp.min_depth,
         bp.max_depth, bp.exponential_rate, bp.p_invalid_occluded,
         bp.p_invalid_visible, bp.p_invalid_background, pi, gdt,
         1.0 / (bp.max_depth - bp.min_depth),
-        lg, f(dt_frames), torch.sign(g), f(bary_slack),
+        lg, dt_frames, torch.sign(g), as_dt(bary_slack, g.device),
     ]).to(torch.float32)
 
 
@@ -418,7 +419,8 @@ class FusedSensor:
         R, P = self.reference_poses, states.shape[0]
         if R <= 1:
             return se3.states_mean(states[:, k])[None, :7]
-        return states[[(r * P) // R for r in range(R)], k, :7]
+        rows = torch.arange(R, device=states.device) * P // R
+        return states[rows, k, :7]
 
     def candidates(self, states):
         """Reference pass → per-pixel global candidate triangle ids (N, K).
@@ -496,7 +498,8 @@ class FusedSensor:
         Returns a dict: ``slot`` (N,) selection rank of every pixel
         (actives first in index order, then inactives), ``ca``/``ci``
         cumulative active/inactive counts, ``n_active``; ``cp`` cumulative
-        presence over the union triangles, ``n_uniq``.
+        presence over the union triangles, ``n_uniq``; ``counts`` the two
+        counts as one float32 pair (what :meth:`choose_level` reads).
         """
         deg = self.union_triangles - 1
         active = torch.any(cand != deg, dim=1)
@@ -508,10 +511,10 @@ class FusedSensor:
                            n_active + ci - 1.0).to(torch.int64)
         pres = torch.zeros((self.union_triangles,), dtype=torch.bool,
                            device=cand.device)
-        pres[cand.reshape(-1)] = True
+        pres.index_fill_(0, cand.reshape(-1), True)
         cp = torch.cumsum(pres.to(torch.float32), 0)
         return dict(slot=slot, ca=ca, ci=ci, n_active=n_active, cp=cp,
-                    n_uniq=cp[-1])
+                    n_uniq=cp[-1], counts=torch.stack([n_active, cp[-1]]))
 
     def level_indices(self, book, pcap, tcap, num_pixels):
         """(sel, uniq) of one level: the selected pixels (actives, then
@@ -540,32 +543,43 @@ class FusedSensor:
                           commit)
 
     def plan(self, states, z_obs, dt) -> "SensorPlan":
-        """What a call decides before its device work: the candidate
-        pass, the model parameters and the ladder's level, with the one
-        host read of (n_active, n_uniq); sets ``last_level``."""
+        """What a call decides before its device work:
+        :meth:`plan_device`, then :meth:`choose_level`."""
+        return self.choose_level(self.plan_device(states, z_obs, dt))
+
+    def plan_device(self, states, z_obs, dt) -> "SensorPlan":
+        """The part of :meth:`plan` before its host read: the candidate
+        pass, the compaction bookkeeping, the slack and the model
+        parameters, all on the device (``dt`` a number or a 0-d tensor).
+        It reads nothing back, so a CUDA graph can hold it; the plan's
+        ``level`` is None until :meth:`choose_level`."""
         from dbot_ros_tpu_torch.ops import slack as slack_mod
 
         cand = self.candidates(states)
         # dt in float32 frame units, as the reference's traced dt
-        dtf = float(np.float32(dt) * np.float32(self.frame_rate))
+        dtf = as_dt(dt, self.device) * float(np.float32(self.frame_rate))
         slack = self.bary_slack
         if slack is None:
             slack = slack_mod.auto_bary_slack(
                 slack_mod.cloud_depth(states[..., 2]), 1.0 / self._fx,
                 self._min_median_edge, self.bary_slack_px)
         params_vec = make_params_vec(self.bp, self.op, dtf, slack)
-        caps = self.caps(z_obs.shape[0])
-        book, level = None, len(caps)
+        book = self.selection(cand) if self.caps(z_obs.shape[0]) else None
+        return SensorPlan(cand, params_vec, dtf, None, book)
+
+    def choose_level(self, plan: "SensorPlan") -> "SensorPlan":
+        """The ladder's level for ``plan``: the tightest whose caps hold
+        (n_active, n_uniq), read back in one 8-byte copy, the call's one
+        host read (none without a ladder). Sets ``last_level``."""
+        caps = self.caps(plan.cand.shape[0])
+        level = len(caps)
         if caps:
-            book = self.selection(cand)
-            n_active, n_uniq = (
-                int(v) for v in torch.stack([book["n_active"],
-                                             book["n_uniq"]]).tolist())
+            n_active, n_uniq = (int(v) for v in plan.book["counts"].tolist())
             level = next((i for i, (pcap, tcap) in enumerate(caps)
                           if (pcap is None or n_active <= pcap)
                           and (tcap is None or n_uniq < tcap)), len(caps))
         self.last_level = level
-        return SensorPlan(cand, params_vec, dtf, level, book)
+        return plan._replace(level=level)
 
     def apply(self, plan: "SensorPlan", states, occ, z_obs, commit=True):
         """The device work of a call at ``plan.level`` (the full level when
@@ -657,13 +671,14 @@ class FusedSensor:
 
 class SensorPlan(NamedTuple):
     """One call's decisions (:meth:`FusedSensor.plan`): the candidate ids
-    (N, K), the kernel's parameters (16,), dt in frame units, the ladder
-    level (``len(caps)``: the full level) and the compaction bookkeeping
-    (:meth:`FusedSensor.selection`; None without a ladder)."""
+    (N, K), the kernel's parameters (16,), dt in frame units (a 0-d
+    float32 tensor), the ladder level (``len(caps)``: the full level;
+    None before :meth:`FusedSensor.choose_level`) and the compaction
+    bookkeeping (:meth:`FusedSensor.selection`; None without a ladder)."""
     cand: torch.Tensor
     params_vec: torch.Tensor
-    dtf: float
-    level: int
+    dtf: torch.Tensor
+    level: Optional[int]
     book: Optional[dict]
 
 

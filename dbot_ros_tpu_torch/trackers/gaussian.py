@@ -12,6 +12,15 @@ machine without CUDA raises. Pass ``device="cpu"`` to run on the CPU, as
 the tests do. A ``track`` call reads nothing back from the device except,
 during a hypothesis trial, all hypotheses' scores together once per
 frame.
+
+**The compiled step.** As the JAX tracker's two ``jax.jit`` steps, the
+step and its frozen variant for trials are one CUDA graph each on the
+card (utils/graphs.py; ``capture=False`` and the CPU run the same
+functions eagerly through the same buffers). ``dt`` is a 0-d float32
+buffer, so distinct intervals never recapture. As in the JAX tracker the
+belief is not donated: a step copies the belief into the graph's
+buffers and returns copies of its results, so a belief held across a
+``track`` call stays as it was.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.trackers.particle import (_host, build_camera,
                                                   build_meshes,
                                                   resolve_device)
+from dbot_ros_tpu_torch.utils import graphs
 from dbot_ros_tpu_torch.utils.camera import CameraModel, preprocess_depth
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
 
@@ -41,14 +51,21 @@ class GaussianTracker:
     """User-facing Gaussian tracker (one or more rigid objects) on
     ``device`` (default: ``cuda``; raises without it). Build from a
     config, or pass meshes and camera directly; they are moved to the
-    device."""
+    device. ``capture`` (default: on a CUDA device) runs each step as a
+    CUDA-graph replay; ``False`` runs it eagerly; ``True`` on the CPU
+    raises."""
 
     def __init__(self, config: cfg.GaussianTrackerConfig,
                  mesh: Optional[TriangleMesh] = None,
                  camera: Optional[CameraModel] = None,
-                 meshes: Optional[List[TriangleMesh]] = None, device=None):
+                 meshes: Optional[List[TriangleMesh]] = None, device=None,
+                 capture=None):
         self.config = config
         self.device = resolve_device(device)
+        self.capture = graphs.resolve_capture(self.device, capture)
+        # the step (True) and its frozen variant (False), on one stream
+        # and pool
+        self.programs: dict = {}
         camera = camera if camera is not None else build_camera(
             config.camera)
         self.camera = camera.to(self.device)
@@ -130,18 +147,34 @@ class GaussianTracker:
         return depth
 
     def _step(self, belief, z, dt, learn_world=True):
-        """One filter step. ``dt`` (a float or a 0-d tensor) scales the
-        process noise and the occlusion memory's propagation: a stream
-        that drops frames passes the real interval."""
+        """One filter step (``learn_world=False``: the trial's frozen
+        variant) through its step program: ``belief``, the frame and
+        ``dt`` (a float or a 0-d tensor, scaling the process noise and the
+        occlusion memory's propagation) are copied in, the graph replayed,
+        and copies of the results returned."""
+        prog = self.programs.get(learn_world)
+        if prog is None:
+            prog = self.programs[learn_world] = graphs.StepProgram(
+                self.device, self.capture,
+                share=next(iter(self.programs.values()), None))
+        bel = prog.keep("belief", belief)
+        z = prog.keep("z", z)
+        dt = prog.scalar("dt", dt)
         c = self.config
-        return rgf.rgf_step(
-            belief, z, render_fn=self.render_fn,
-            trans_params=self.trans_params, dt=dt, bp=self.beam_params,
-            iterations=c.update_iterations, trust_sigma=c.trust_sigma,
-            lin_floor_pos=c.lin_floor_pos, lin_floor_rot=c.lin_floor_rot,
-            lin_cap_pos=c.lin_cap_pos, lin_cap_rot=c.lin_cap_rot,
-            bg_sigma=c.bg_sigma, occ_params=self._occ_params,
-            occ_dt_frames=dt * self._frame_rate, learn_world=learn_world)
+
+        def step():
+            new, info = rgf.rgf_step(
+                bel, z, render_fn=self.render_fn,
+                trans_params=self.trans_params, dt=dt, bp=self.beam_params,
+                iterations=c.update_iterations, trust_sigma=c.trust_sigma,
+                lin_floor_pos=c.lin_floor_pos, lin_floor_rot=c.lin_floor_rot,
+                lin_cap_pos=c.lin_cap_pos, lin_cap_rot=c.lin_cap_rot,
+                bg_sigma=c.bg_sigma, occ_params=self._occ_params,
+                occ_dt_frames=dt * self._frame_rate, learn_world=learn_world)
+            return prog.keep("belief", new), prog.keep("info", info)
+
+        new, info = prog.run("step", step)
+        return _copy(new), _copy(info)
 
     @property
     def centers(self):
@@ -323,3 +356,11 @@ class GaussianTracker:
                     info)
         return base.to_model_frame(self._smoothed, self.centers), info
 
+
+
+def _copy(x):
+    """A frozen dataclass of tensors (and None) with every tensor copied."""
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).clone()
+        for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})

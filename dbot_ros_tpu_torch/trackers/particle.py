@@ -9,6 +9,27 @@ trial of racing init hypotheses.
 The tracker runs on the card: ``device=None`` means ``cuda``, and a
 machine without CUDA raises. Pass ``device="cpu"`` to run the kernels'
 plain versions on the CPU, as the tests do.
+
+**The compiled step.** As the JAX tracker's ``jax.jit`` step, a step
+runs through a step program (utils/graphs.py): on the card, CUDA-graph
+replays (``capture=None`` or ``True``); with ``capture=False``, and on
+the CPU, the same functions eagerly through the same buffers. Each
+coordinate block is two graphs with the fused sensor, the proposal with
+the sensor's work before its one host read (``FusedSensor.plan_device``)
+and, after the read picks the ladder's level, one graph per level for
+the rest of the block (after the last block the step's summary too);
+with another sensor one graph per block. ``dt`` is a 0-d float32 buffer,
+so distinct intervals never recapture. The random numbers are drawn into
+static buffers from the tracker's (or the island's) generator before the
+replay, in the eager step's order, so the streams are the eager step's.
+
+**The belief is donated**, as in the JAX tracker: a step overwrites the
+buffers of the belief before it, and ``tracker.belief`` after a step *is*
+those buffers. Whatever keeps a belief across a ``track`` call owns a
+copy or reads it first (a checkpoint save reads it at once). A belief
+set from outside (``initialize``, ``restore``, a re-initialization by the
+watchdog or a command) is copied into the buffers by the next step and
+never written; nothing recaptures.
 """
 
 from __future__ import annotations
@@ -27,7 +48,7 @@ from dbot_ros_tpu_torch.models.sensor import make_rb_sensor, render_scene
 from dbot_ros_tpu_torch.ops import resample as rs
 from dbot_ros_tpu_torch.ops.budget import xla_tri_chunk
 from dbot_ros_tpu_torch.trackers import base
-from dbot_ros_tpu_torch.utils import se3
+from dbot_ros_tpu_torch.utils import graphs, se3
 from dbot_ros_tpu_torch.utils.camera import (CameraModel,
                                              default_kinect_camera,
                                              make_camera, preprocess_depth)
@@ -81,13 +102,21 @@ class ParticleTracker:
     """User-facing particle tracker (one or more rigid objects) on
     ``device`` (default: ``cuda``; raises without it). Build from a
     config, or pass meshes and camera directly; they are moved to the
-    device."""
+    device. ``capture`` (default: on a CUDA device) runs each step as
+    CUDA-graph replays; ``False`` runs it eagerly; ``True`` on the CPU
+    raises."""
 
     def __init__(self, config: cfg.ParticleTrackerConfig,
                  meshes: Optional[List[TriangleMesh]] = None,
-                 camera: Optional[CameraModel] = None, device=None):
+                 camera: Optional[CameraModel] = None, device=None,
+                 capture=None):
         self.config = config
         self.device = resolve_device(device)
+        self.capture = graphs.resolve_capture(self.device, capture)
+        # one step program per island slot, kept across trials (slot 0:
+        # the tracker's own generator), all on one stream and pool
+        self.programs: dict = {}
+        self._island_generators: list = []
         camera = camera if camera is not None else build_camera(
             config.camera)
         self.camera = camera.to(self.device)
@@ -131,6 +160,26 @@ class ParticleTracker:
         (surfaced into FrameMetrics: per-frame latency multiplies by it
         during a trial)."""
         return len(self._trial["beliefs"]) if self._trial else None
+
+    def _program(self, generator) -> graphs.StepProgram:
+        """The step program of the island drawing from ``generator`` (its
+        slot in the last trial), else slot 0's."""
+        slot = next((i for i, g in enumerate(self._island_generators)
+                     if g is generator), 0)
+        prog = self.programs.get(slot)
+        if prog is None:
+            prog = self.programs[slot] = graphs.StepProgram(
+                self.device, self.capture,
+                share=next(iter(self.programs.values()), None))
+        return prog
+
+    def _score(self, generator, mean_state, z):
+        """:meth:`_pose_score` through the island's step program."""
+        prog = self._program(generator)
+        mean_state = prog.keep("info.mean_state", mean_state)
+        z = prog.keep("z", z)
+        return prog.run("score", lambda: prog.keep(
+            "score", self._pose_score(mean_state, z)))
 
     def _pose_score(self, mean_state, z_obs):
         """Chain-free pose score for the island race: an island's
@@ -201,6 +250,7 @@ class ParticleTracker:
                      else list(range(hyp.shape[0])))[:MAX_ISLANDS]
             generators = [island_generator(self.config.seed, i + 1,
                                            self.device) for i in order]
+            self._island_generators = generators
             beliefs = [self._make_belief(
                 base.to_center_frame(hyp[i], self.centers), g)
                 for i, g in zip(order, generators)]
@@ -215,23 +265,80 @@ class ParticleTracker:
 
     def restore(self, belief: rbcpf.ParticleBelief):
         """Resume from a saved belief (runtime/checkpoint.py); ends a
-        running trial. The tracker takes a copy of the occlusion map,
-        which ``track`` updates in place, so ``belief`` itself stays as
-        it was."""
+        running trial. The next step copies ``belief`` into the tracker's
+        buffers, so ``belief`` itself stays as it was (unless it is the
+        tracker's own, which each step overwrites)."""
         self._trial = None
-        occ = belief.occlusion
-        occ = ((occ[0].clone(), *occ[1:]) if isinstance(occ, (tuple, list))
-               else occ.clone())
-        self.belief = dataclasses.replace(belief, occlusion=occ)
+        self.belief = belief
         ln, _ = rs.normalize_log_weights(belief.log_weights)
         mean = se3.states_mean(belief.states, torch.exp(ln))
         self._smoothed = mean[:, :7]
 
     def _step(self, belief, z, dt, generator):
-        return rbcpf.rbcpf_step(
-            belief, z, self.sensor, self.trans_params, dt,
-            max_kl_divergence=self.config.max_kl_divergence,
-            generator=generator)
+        """One filter step of ``belief`` through the step program of
+        ``generator``'s island (see the module docstring): the same
+        result, bit for bit, as ``rbcpf.rbcpf_step`` drawing from
+        ``generator``. Returns the program's buffers."""
+        prog = self._program(generator)
+        bel = prog.keep("belief", belief)
+        z = prog.keep("z", z)
+        dt = prog.scalar("dt", dt)
+        P, K = bel.states.shape[:2]
+        resamples = self.config.max_kl_divergence < rbcpf.NEVER_RESAMPLE_KL
+        noise = rbcpf.draw_noise([rbcpf.BlockNoise(
+            prog.buffer(f"e1.{b}", (P, 6)), prog.buffer(f"e2.{b}", (P, 6)),
+            prog.buffer(f"u.{b}", ()) if resamples else None)
+            for b in range(K)], generator)
+        info = None
+        for b in range(K):
+            info = self._block(prog, b, bel, z, dt, noise[b])
+        return dataclasses.replace(bel), info
+
+    def _block(self, prog, b, bel, z, dt, nb):
+        """Coordinate block ``b`` of a step: with the fused sensor, one
+        graph for the proposal and the sensor's work before its host read,
+        the read (the level), and the level's graph for the rest; with
+        another sensor one graph. The belief's buffers are updated in
+        place; after the last block the step's StepInfo is returned."""
+        sensor = self.sensor
+        last = b == bel.num_objects - 1
+        split = hasattr(sensor, "plan_device")
+
+        def propose():
+            states = prog.keep("belief.states", rbcpf.propose_block(
+                bel.states, b, dt, self.trans_params, nb))
+            plan = (prog.keep("plan", sensor.plan_device(states, z, dt))
+                    if split else None)
+            return states, plan
+
+        def rest(states, plan):
+            if plan is None:
+                loglik, occ_post = sensor(states, bel.occlusion, z, dt,
+                                          commit=last)
+            else:
+                loglik, occ_post = sensor.apply(plan, states, bel.occlusion,
+                                                z, commit=last)
+            if b == 0:
+                old = torch.zeros_like(bel.log_weights)
+                res = torch.zeros((), dtype=torch.bool, device=self.device)
+            else:
+                old, res = prog["carry.old_loglik"], prog["carry.resampled"]
+            new, old, res, kl = rbcpf.weigh_block(
+                dataclasses.replace(bel, states=states), loglik, occ_post,
+                old, res, last, self.config.max_kl_divergence,
+                rbcpf.occlusion_gather(sensor), u=nb.u)
+            prog.keep("belief", new)
+            if last:
+                return prog.keep("info", rbcpf.summarize(new, loglik, res,
+                                                         kl))
+            prog.keep("carry", {"old_loglik": old, "resampled": res})
+            return None
+
+        if not split:
+            return prog.run(("block", b), lambda: rest(*propose()))
+        states, plan = prog.run(("propose", b), propose)
+        plan = sensor.choose_level(plan)
+        return prog.run(("rest", b, plan.level), lambda: rest(states, plan))
 
     def track(self, depth_image, dt=None):
         """One frame → (poses (K, 7) in the model frame, StepInfo).
@@ -250,9 +357,9 @@ class ParticleTracker:
         if trial:
             infos, scores = [], []
             for i, b in enumerate(trial["beliefs"]):
-                trial["beliefs"][i], info_i = self._step(
-                    b, z, dt, trial["generators"][i])
-                scores.append(self._pose_score(info_i.mean_state, z))
+                gen = trial["generators"][i]
+                trial["beliefs"][i], info_i = self._step(b, z, dt, gen)
+                scores.append(self._score(gen, info_i.mean_state, z))
                 infos.append(info_i)
             # one host read for all islands
             for i, s in enumerate(torch.stack(scores).tolist()):

@@ -22,6 +22,8 @@ rtol 1e-3 + 1e-8), which also shows that the ``_ex`` linear algebra and
 service) runs once, short, with the kernels counted per frame.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -586,3 +588,126 @@ def test_live_path_through_the_u16_camera_and_the_socket(cuda):
     err = np.linalg.norm(run.poses[-1, 0, :3]
                          - traj(run.metrics.records[-1].frame)[0, :3])
     assert err < 0.01, err
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: CUDA-graph replays against the eager step
+# ---------------------------------------------------------------------------
+
+GRAPH_POSES = np.array([[-0.02, 0.0, 0.62, 1, 0, 0, 0],
+                        [0.03, 0.01, 0.55, 1, 0, 0, 0]], np.float32)
+GRAPH_DTS = (1 / 30, 1 / 15, 0.25, 1 / 30, 0.1, 1 / 30)
+
+
+def graph_scene(num_objects):
+    from dbot_ros_tpu_torch.runtime import sources
+
+    K = np.array([[60.0, 0, 20], [0, 60.0, 15], [0, 0, 1.0]])
+    cam = camera.make_camera(K, 30, 40)
+    meshes = [mesh.tagged_l_mesh(), mesh.box_mesh(0.05, 0.08, 0.04)]
+    meshes = meshes[:num_objects]
+
+    def traj(i):
+        p = GRAPH_POSES[:num_objects].copy()
+        p[:, 0] += 0.003 * i
+        return p
+
+    src = sources.SyntheticSource(meshes, cam, traj, len(GRAPH_DTS), seed=5)
+    return cam, meshes, [src.render(torch.as_tensor(traj(i))).numpy()
+                         for i in range(len(GRAPH_DTS))]
+
+
+def run_frames(tracker, frames, hypotheses=None, restore_at=3):
+    """``tracker`` over ``frames`` (a two-hypothesis trial first when
+    given, a restore of frame 0's belief before ``restore_at``): per frame
+    the poses, a copy of the belief and the kernels' launches."""
+    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+
+    particle = isinstance(tracker, ParticleTracker)
+    init = GRAPH_POSES[:len(tracker.meshes)]
+    if not particle:
+        init = init[0]
+    kw = {} if particle else {"first_frame": frames[0]}
+    tracker.initialize(init, hypotheses=hypotheses, trial_frames=2, **kw)
+    wrappers = (kernels.fused_loglik, kernels.gather_pixel_rows,
+                kernels.scatter_pixel_rows, kernels.lineage_gather)
+    out, saved = [], None
+    for f, (depth, dt) in enumerate(zip(frames, GRAPH_DTS)):
+        if f == restore_at:
+            tracker.restore(saved)
+        before = [w.launches for w in wrappers]
+        poses, _ = tracker.track(depth, dt=dt)
+        torch.cuda.synchronize()
+        belief = tracker.belief
+        copy = belief.clone() if particle else belief
+        if f == 0:
+            saved = copy
+        out.append((poses.cpu(), [x.cpu().clone() for x in (
+            [copy.states, copy.log_weights, *copy.occlusion] if particle
+            else [copy.mean, copy.cov, copy.background])],
+            [w.launches - b for w, b in zip(wrappers, before)]))
+    return out
+
+
+@pytest.mark.parametrize("num_objects,trial", [(1, False), (2, False),
+                                               (1, True)])
+def test_captured_particle_step_equals_eager(cuda, num_objects, trial):
+    """The same frames and seed through a captured and an eager tracker:
+    the same poses, beliefs and launches per frame, bit for bit, over a
+    varying dt, a restore and (one object) a two-island trial."""
+    from dbot_ros_tpu_torch import config as cfg
+    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+
+    cam, meshes, frames = graph_scene(num_objects)
+    conf = cfg.ParticleTrackerConfig(
+        evaluation_count=1000, backend="pallas", seed=3,
+        observation=cfg.ObservationConfig(model_sigma=0.005,
+                                          sigma_factor=0.0),
+        transition=cfg.TransitionConfig(0.2, 1.0, damping=4.0))
+    hyp = None
+    if trial:
+        rival = GRAPH_POSES[:1].copy()
+        rival[0, 0] += 0.01
+        hyp = np.stack([rival, GRAPH_POSES[:1]])
+    runs = {}
+    for capture in (True, False):
+        tr = ParticleTracker(conf, meshes=meshes, camera=cam, device=cuda,
+                             capture=capture)
+        runs[capture] = run_frames(tr, frames, hyp,
+                                   restore_at=None if trial else 3)
+        if capture:
+            progs = list(tr.programs.values())
+            assert sum(p.graph_count for p in progs) >= 2
+            # one capture stream and pool for all of a tracker's programs
+            assert len({(id(p.stream), id(p.pool)) for p in progs}) == 1
+    for (pa, ba, la), (pb, bb, lb) in zip(runs[True], runs[False]):
+        assert torch.equal(pa, pb)
+        assert all(torch.equal(x, y) for x, y in zip(ba, bb))
+        assert la == lb and la[0] >= 1
+
+
+def test_captured_gaussian_step_equals_eager(cuda):
+    """The Gaussian step and its frozen trial variant, captured and eager,
+    on the same frames: the same poses and beliefs, bit for bit."""
+    from dbot_ros_tpu_torch import config as cfg
+    from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
+
+    cam, meshes, frames = graph_scene(1)
+    conf = cfg.GaussianTrackerConfig(
+        update_iterations=2,
+        transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
+    rival = GRAPH_POSES[0].copy()
+    rival[0] += 0.01
+    runs = {}
+    for capture in (True, False):
+        tr = GaussianTracker(conf, meshes=meshes, camera=cam, device=cuda,
+                             capture=capture)
+        runs[capture] = run_frames(tr, frames,
+                                   np.stack([GRAPH_POSES[0], rival]),
+                                   restore_at=4)
+        if capture:
+            assert sorted(tr.programs) == [False, True]
+            assert all(p.graph_count == 1 for p in tr.programs.values())
+    for (pa, ba, _), (pb, bb, _) in zip(runs[True], runs[False]):
+        assert torch.equal(pa, pb)
+        assert all(torch.equal(x, y) for x, y in zip(ba, bb))

@@ -1,0 +1,478 @@
+"""The trackers' compiled step (dbot_ros_tpu_torch/utils/graphs.py) on
+the CPU, where it runs without capture through the same buffers.
+
+* ``sample_transition`` with ``dt`` a 0-d float32 tensor against the JAX
+  function under ``jax.jit`` with ``dt`` traced, on the same draws.
+* The fused sensor's call split at its one host read (``plan_device``,
+  ``choose_level``, ``apply``) against ``__call__``, bit for bit.
+* Each tracker's step through its step program against the plain eager
+  step (``rbcpf.rbcpf_step``, ``rgf.rgf_step``) on the same draws, bit
+  for bit: a varying ``dt``, a ``restore`` and a re-initialization
+  between frames, one and two objects, a two-island trial, the Gaussian
+  step and its frozen trial variant.
+* The graphs' functions read nothing back and copy nothing from the host
+  (what a capture forbids), seen through a dispatch mode.
+* Launch counts over replays, with a stand-in for the CUDA graph.
+* ``capture=True`` on the CPU raises.
+
+The CUDA graphs themselves are held against the eager step on the card
+(tests/test_torch_cuda.py, chip_smoke.py's graph phase).
+"""
+
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from dbot_ros_tpu.models import transition as jtrans
+from dbot_ros_tpu_torch import config as cfg
+from dbot_ros_tpu_torch.filters import rbcpf, rgf
+from dbot_ros_tpu_torch.models import transition
+from dbot_ros_tpu_torch.ops import kernels
+from dbot_ros_tpu_torch.runtime import sources, watchdog
+from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
+from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+from dbot_ros_tpu_torch.utils import camera, graphs, mesh
+from dbot_ros_tpu_torch.utils.camera import preprocess_depth
+
+torch.set_num_threads(1)
+
+K_CAM = np.array([[48.0, 0, 16], [0, 48.0, 16], [0, 0, 1.0]])
+POSES = np.array([[-0.02, 0.0, 0.62, 1, 0, 0, 0],
+                  [0.03, 0.01, 0.55, 1, 0, 0, 0]], np.float32)
+# a dropped frame, node.run's cap after a re-initialization (0.25 s), ...
+DTS = (1 / 30, 1 / 15, 0.25, 1 / 30, 0.1)
+FRAMES = len(DTS)
+
+
+def scene(num_objects, frames=FRAMES):
+    """32×32 camera, the tagged L (and a box), noisy frames of a slow
+    slide: (camera, meshes, flat depth frames)."""
+    cam = camera.make_camera(K_CAM, 32, 32)
+    meshes = [mesh.tagged_l_mesh(), mesh.box_mesh(0.05, 0.08, 0.04)]
+    meshes = meshes[:num_objects]
+
+    def traj(i):
+        p = POSES[:num_objects].copy()
+        p[:, 0] += 0.003 * i
+        return p
+
+    src = sources.SyntheticSource(meshes, cam, traj, frames, seed=5)
+    return cam, meshes, [src.render(torch.as_tensor(traj(i))).numpy()
+                         for i in range(frames)]
+
+
+def particle_tracker(cam, meshes, particles=256, **kw):
+    conf = cfg.ParticleTrackerConfig(
+        evaluation_count=particles, backend="pallas", seed=3,
+        observation=cfg.ObservationConfig(model_sigma=0.005,
+                                          sigma_factor=0.0),
+        transition=cfg.TransitionConfig(0.2, 1.0, damping=4.0))
+    return ParticleTracker(conf, meshes=meshes, camera=cam, device="cpu",
+                           **kw)
+
+
+def gaussian_tracker(cam, meshes, **kw):
+    conf = cfg.GaussianTrackerConfig(
+        update_iterations=2,
+        transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
+    return GaussianTracker(conf, meshes=meshes, camera=cam, device="cpu",
+                           **kw)
+
+
+def twin(gen):
+    """A generator in the same state as ``gen``."""
+    out = torch.Generator()
+    out.set_state(gen.get_state())
+    return out
+
+
+def leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x)
+                for v in leaves(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in leaves(y)]
+    return []
+
+
+def assert_same(a, b):
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb) and la
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# dt as a device tensor
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", [1 / 30, 0.07, 0.25])
+def test_sample_transition_with_a_tensor_dt_matches_jax_traced(dt):
+    """The JAX step traces ``dt`` in float32 (``jnp.sqrt`` of it); the
+    port takes a 0-d float32 tensor and follows it op for op. Tolerance
+    2e-6 absolute, as the float-``dt`` parity test: the products of one
+    float32 formula in another order. A float ``dt`` gives the same bits
+    as its float32 tensor."""
+    g = np.random.default_rng(4)
+    states = np.zeros((64, 13), np.float32)
+    states[:, :3] = [0.0, 0.0, 0.6] + 0.01 * g.standard_normal((64, 3))
+    q = g.standard_normal((64, 4))
+    states[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    states[:, 7:] = 0.2 * g.standard_normal((64, 6))
+    jp = jtrans.make_transition_params(0.3, 1.5, damping=6.0)
+    tp = transition.make_transition_params(0.3, 1.5, damping=6.0)
+    key = jax.random.PRNGKey(2)
+    step = jax.jit(lambda k, s, d: jtrans.sample_transition(k, s, d, jp))
+    want = step(key, jnp.asarray(states), jnp.float32(dt))
+    # the JAX function's own draws, handed to the port as numpy arrays
+    k1, k2 = jax.random.split(key)
+    e1 = np.array(jax.random.normal(k1, (64, 6), jnp.float32))
+    e2 = np.array(jax.random.normal(k2, (64, 6), jnp.float32))
+    args = (torch.from_numpy(states), )
+    kw = dict(e1=torch.from_numpy(e1), e2=torch.from_numpy(e2))
+    got = transition.sample_transition(
+        *args, torch.tensor(dt, dtype=torch.float32), tp, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+    assert torch.equal(got, transition.sample_transition(*args, dt, tp,
+                                                         **kw))
+    d = transition.as_dt(dt)
+    assert d.dtype == torch.float32 and d.shape == ()
+    assert transition.as_dt(d) is d
+
+
+# ---------------------------------------------------------------------------
+# the fused sensor split at its host read
+# ---------------------------------------------------------------------------
+
+def test_sensor_plan_split_equals_the_call_across_levels():
+    """One sensor, three clouds whose silhouettes need the tight level,
+    the second and the full one: ``plan_device`` (no level),
+    ``choose_level`` (one read of two float32 counts) and ``apply`` give
+    ``__call__``'s loglik, map and ages bit for bit, with ``dt`` a float
+    or a 0-d tensor."""
+    cam = camera.make_camera(K_CAM, 32, 32)
+    tr = particle_tracker(cam, [mesh.icosphere_mesh(0.05, 2)], particles=96)
+    sensor = tr.sensor
+    g = torch.Generator().manual_seed(0)
+    levels = []
+    for f, z0 in enumerate((1.2, 0.3, 0.16)):
+        states = torch.zeros((96, 1, 13))
+        states[..., 2] = z0
+        states[..., 3] = 1.0
+        states[..., :3] += 0.004 * torch.randn((96, 1, 3), generator=g)
+        z = torch.full((cam.num_pixels,), 2.0)
+        z[::7] = z0
+        occ = sensor.init_occlusion(96, 0.1)
+        want = sensor(states, tuple(x.clone() for x in occ), z, 1 / 30)
+        plan = sensor.plan_device(states, z, torch.tensor(1 / 30))
+        assert plan.level is None and plan.book["counts"].dtype == \
+            torch.float32 and plan.book["counts"].shape == (2,)
+        plan = sensor.choose_level(plan)
+        levels.append(plan.level)
+        assert sensor.last_level == plan.level
+        got = sensor.apply(plan, states, tuple(x.clone() for x in occ), z)
+        assert_same(got, want)
+    assert levels == [0, 1, 2], levels
+
+
+# ---------------------------------------------------------------------------
+# the step programs against the plain eager steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("num_objects", [1, 2])
+def test_particle_program_equals_the_eager_step(num_objects):
+    """Five frames through ``track`` against ``rbcpf_step`` drawing from a
+    twin of the tracker's generator: a varying ``dt``, a ``restore`` of
+    frame 0's belief before frame 2, a watchdog re-initialization before
+    frame 4. The belief is donated: every step writes the same buffers."""
+    cam, meshes, frames = scene(num_objects)
+    tr = particle_tracker(cam, meshes)
+    tr.initialize(POSES[:num_objects])
+    ref, gen = tr.belief.clone(), twin(tr.generator)
+    buffers = None
+    for f, (depth, dt) in enumerate(zip(frames, DTS)):
+        if f == 2:
+            tr.restore(saved)
+            ref = saved.clone()
+        if f == 4:
+            watchdog.reinitialize_particle_tracker(tr, POSES[:num_objects])
+            ref, gen = tr.belief.clone(), twin(tr.generator)
+        poses, info = tr.track(depth, dt=dt)
+        z = preprocess_depth(torch.as_tensor(depth).reshape(-1))
+        ref, ref_info = rbcpf.rbcpf_step(
+            ref, z, tr.sensor, tr.trans_params, float(np.float32(dt)),
+            max_kl_divergence=tr.config.max_kl_divergence, generator=gen)
+        assert_same(tr.belief, ref)
+        assert_same(info, ref_info)
+        assert torch.equal(tr.generator.get_state(), gen.get_state())
+        if buffers is None:
+            buffers = [x.data_ptr() for x in leaves(tr.belief)]
+        assert [x.data_ptr() for x in leaves(tr.belief)] == buffers
+        if f == 0:
+            saved = tr.belief.clone()
+    assert list(tr.programs) == [0] and not tr.programs[0].capture
+    assert tr.programs[0].graph_count == 0
+
+
+def test_island_trial_programs_equal_the_eager_steps():
+    """Two islands race for two frames, each through its own program,
+    against ``rbcpf_step`` with twins of the islands' generators and the
+    eager pose score; the winner's program then goes on as the tracker's
+    step."""
+    cam, meshes, frames = scene(1, frames=3)
+    tr = particle_tracker(cam, meshes)
+    rival = POSES[:1].copy()
+    rival[0, 0] += 0.01
+    tr.initialize(POSES[:1], hypotheses=np.stack([rival, POSES[:1]]),
+                  trial_frames=2, trial_switch_margin=0.0)
+    trial = tr._trial
+    refs = [b.clone() for b in trial["beliefs"]]
+    gens = [twin(g) for g in trial["generators"]]
+    scores = [0.0, 0.0]
+    for f in range(3):
+        z = preprocess_depth(torch.as_tensor(frames[f]).reshape(-1))
+        poses, info = tr.track(frames[f], dt=DTS[f])
+        if f < 2:
+            for i in range(2):
+                refs[i], ref_info = rbcpf.rbcpf_step(
+                    refs[i], z, tr.sensor, tr.trans_params,
+                    float(np.float32(DTS[f])), generator=gens[i],
+                    max_kl_divergence=tr.config.max_kl_divergence)
+                scores[i] += float(tr._pose_score(ref_info.mean_state, z))
+                assert_same(trial["beliefs"][i], refs[i])
+            assert trial["scores"] == scores
+            best = int(np.argmax(scores)) if f == 1 else 0
+        else:
+            refs[best], ref_info = rbcpf.rbcpf_step(
+                refs[best], z, tr.sensor, tr.trans_params,
+                float(np.float32(DTS[f])), generator=gens[best],
+                max_kl_divergence=tr.config.max_kl_divergence)
+            assert_same(info, ref_info)
+        assert_same(tr.belief, refs[best])
+    assert tr.trial_active is None and tr.generator is trial[
+        "generators"][best]
+    assert sorted(tr.programs) == [0, 1]
+
+
+def gaussian_eager(tr, belief, z, dt, learn_world=True):
+    c = tr.config
+    dt = torch.tensor(np.float32(dt))
+    return rgf.rgf_step(
+        belief, z, render_fn=tr.render_fn, trans_params=tr.trans_params,
+        dt=dt, bp=tr.beam_params, iterations=c.update_iterations,
+        trust_sigma=c.trust_sigma, lin_floor_pos=c.lin_floor_pos,
+        lin_floor_rot=c.lin_floor_rot, lin_cap_pos=c.lin_cap_pos,
+        lin_cap_rot=c.lin_cap_rot, bg_sigma=c.bg_sigma,
+        occ_params=tr._occ_params, occ_dt_frames=dt * tr._frame_rate,
+        learn_world=learn_world)
+
+
+def test_gaussian_programs_equal_the_eager_steps():
+    """Two frozen trial frames of two hypotheses, then three steps with a
+    varying ``dt`` and a ``restore`` between them, against ``rgf_step``;
+    the belief is not donated (as in the JAX tracker), so a belief held
+    across ``track`` stays as it was."""
+    cam, meshes, frames = scene(1)
+    tr = gaussian_tracker(cam, meshes)
+    rival = POSES[0].copy()
+    rival[0] += 0.01
+    tr.initialize(POSES[0], first_frame=frames[0],
+                  hypotheses=np.stack([POSES[0], rival]), trial_frames=2)
+    refs = list(tr._trial["beliefs"])
+    for f in range(2):
+        z = tr._frame(frames[f])
+        tr.track(frames[f], dt=DTS[f])
+        if tr._trial:
+            for i, b in enumerate(tr._trial["beliefs"]):
+                refs[i], _ = gaussian_eager(tr, refs[i], z, DTS[f], False)
+                assert_same(b, refs[i])
+    held = tr.belief
+    copy = dataclasses.replace(held, **{
+        k: getattr(held, k).clone() for k in ("mean", "cov", "background",
+                                              "occ_prior")})
+    ref = held
+    for f in range(2, FRAMES):
+        if f == 4:
+            tr.restore(copy)
+            ref = copy
+        z = tr._frame(frames[f])
+        pose, info = tr.track(frames[f], dt=DTS[f])
+        ref, ref_info = gaussian_eager(tr, ref, z, DTS[f])
+        assert_same(tr.belief, ref)
+        assert_same(info, ref_info)
+    assert_same(held, copy)
+    assert sorted(tr.programs) == [False, True]
+
+
+# ---------------------------------------------------------------------------
+# what a capture forbids, seen on the CPU
+# ---------------------------------------------------------------------------
+
+class HostTouches(TorchDispatchMode):
+    """Records the ops a CUDA-graph capture refuses or would freeze: a
+    read back to the host, a tensor made from host data (a copy from the
+    host on the card), and indexing by a boolean mask (a read of its
+    count)."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name.split(".")[1] in ("_local_scalar_dense", "lift_fresh",
+                                  "nonzero", "masked_select"):
+            self.found.append(name)
+        if name.startswith(("aten.index.", "aten.index_put")) and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in (args[1] if len(args) > 1 else ())
+                if i is not None):
+            self.found.append(name + " (mask)")
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def audited_programs(monkeypatch):
+    """Every call of a step program's graph function after its first (on
+    the card: the capture and the replays) runs under
+    :class:`HostTouches`; yields the list of what was found."""
+    found, seen = [], set()
+    real_tolist = torch.Tensor.tolist
+
+    def run(self, key, fn):
+        if (id(self), key) not in seen:
+            seen.add((id(self), key))
+            return fn()
+        with HostTouches() as audit:
+            with monkeypatch.context() as m:
+                m.setattr(torch.Tensor, "tolist", lambda t: found.append(
+                    (key, "tolist")) or real_tolist(t))
+                out = fn()
+        found.extend((key, op) for op in audit.found)
+        return out
+
+    monkeypatch.setattr(graphs.StepProgram, "run", run)
+    yield found
+
+
+def test_graph_functions_read_nothing_back(monkeypatch):
+    """Two objects with the fused sensor, a two-island trial, the "xla"
+    sensor, and both Gaussian steps: from its second call on, no graph
+    function reads a value back, makes a tensor from host data or indexes
+    by a mask (the ladder's one read is outside the graphs)."""
+    cam, meshes, frames = scene(2, frames=3)
+    with audited_programs(monkeypatch) as found:
+        tr = particle_tracker(cam, meshes, particles=128)
+        tr.initialize(POSES)
+        for depth in frames:
+            tr.track(depth)
+        tr.initialize(POSES, hypotheses=np.stack([POSES, POSES]),
+                      trial_frames=3)
+        for depth in frames:
+            tr.track(depth, dt=0.05)
+        xla = ParticleTracker(dataclasses.replace(
+            tr.config, backend="xla", evaluation_count=16),
+            meshes=meshes, camera=cam, device="cpu")
+        xla.initialize(POSES)
+        for depth in frames[:2]:
+            xla.track(depth)
+        gt = gaussian_tracker(cam, meshes[:1])
+        gt.initialize(POSES[0], first_frame=frames[0],
+                      hypotheses=np.stack([POSES[0]] * 2), trial_frames=2)
+        for depth in frames:
+            gt.track(depth)
+        gt.track(frames[0], dt=torch.tensor(0.05))
+    assert found == []
+    assert tr.programs[0].graph_count == 0      # no capture on the CPU
+
+
+# ---------------------------------------------------------------------------
+# launch counts over replays; capture=True on the CPU
+# ---------------------------------------------------------------------------
+
+class StandInGraph:
+    """A CUDA graph stand-in on the CPU: a capture records nothing, a
+    replay counts itself (it would run the kernels, and no Python)."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def stand_in_cuda(monkeypatch):
+    """Swap what StepProgram asks of torch.cuda for CPU stand-ins."""
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 0)
+    monkeypatch.setattr(graphs, "resolve_capture", lambda d, c=None: True)
+
+
+def test_launch_counts_survive_replays(monkeypatch):
+    """A graph function that launches (bumps) every counter a known number
+    of times: its eager first call counts, its capture's bumps are taken
+    back, and each replay adds them again, so N calls count N times; a
+    function that returns a tensor it did not keep is refused."""
+    stand_in_cuda(monkeypatch)
+    per_call = {(w, a): i + 1 for i, (w, a) in enumerate(graphs.COUNTERS)}
+    for (w, a) in per_call:
+        monkeypatch.setattr(w, a, 0)
+    prog = graphs.StepProgram("cpu")
+    assert prog.capture
+
+    def fn():
+        for (w, a), k in per_call.items():
+            setattr(w, a, getattr(w, a) + k)
+        return prog.keep("out", torch.ones(3))
+
+    outs = [prog.run("step", fn) for _ in range(5)]
+    assert all(o is outs[0] for o in outs) and prog.graph_count == 1
+    assert prog._graphs["step"].graph.replays == 4
+    for (w, a), k in per_call.items():
+        assert getattr(w, a) == 5 * k, (a, getattr(w, a))
+    with pytest.raises(RuntimeError, match="not a kept buffer"):
+        prog.run("loose", lambda: torch.ones(2))
+    assert kernels.fused_loglik.launches == 5 * per_call[
+        (kernels.fused_loglik, "launches")]
+
+
+def test_capture_on_the_cpu_raises():
+    cam, meshes, _ = scene(1, frames=1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        graphs.StepProgram("cpu", capture=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        particle_tracker(cam, meshes, capture=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gaussian_tracker(cam, meshes, capture=True)
+    assert not particle_tracker(cam, meshes).capture
+    assert not graphs.resolve_capture("cpu")
+    assert graphs.resolve_capture("cuda") and graphs.resolve_capture(
+        "cuda", None)
+    assert not graphs.resolve_capture("cuda", False)
+    prog = graphs.StepProgram("cpu")
+    a = prog.keep("x", {"a": torch.ones(2), "b": None, "c": (3, 1.5)})
+    assert a["b"] is None and a["c"] == (3, 1.5)
+    assert prog.keep("x.a", a["a"]) is a["a"]
+    with pytest.raises(ValueError, match="buffer 'x.a'"):
+        prog.keep("x.a", torch.ones(3))

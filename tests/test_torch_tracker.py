@@ -229,11 +229,13 @@ def test_closed_loop_tracks_synthetic_trajectory():
 
 
 def test_restore_then_track_leaves_the_saved_belief_unchanged():
-    """``track`` scatters into the tracker's occlusion map in place;
-    ``restore`` must copy it, so one saved belief restored twice gives
-    the same frame twice, and the saved belief itself never changes."""
+    """A step overwrites the tracker's belief in place (the donated
+    belief of the JAX tracker: the map's rows are scattered into it), so
+    a saved belief is a copy; ``restore`` must copy it in, so one saved
+    belief restored twice gives the same frame twice, and the saved
+    belief itself never changes."""
     tracker, _ = closed_loop(frames=3)
-    saved = tracker.belief
+    saved = tracker.belief.clone()
     q0, age0 = saved.occlusion[0].clone(), saved.occlusion[1].clone()
     depth = sources.SyntheticSource(
         tracker.meshes, tracker.camera, closed_loop_traj, 4,
@@ -243,7 +245,7 @@ def test_restore_then_track_leaves_the_saved_belief_unchanged():
         tracker.restore(saved)
         tracker.generator.manual_seed(11)
         poses, _ = tracker.track(depth.numpy())
-        outs.append((poses, tracker.belief.occlusion[0]))
+        outs.append((poses, tracker.belief.occlusion[0].clone()))
         assert torch.equal(saved.occlusion[0], q0)
         assert torch.equal(saved.occlusion[1], age0)
     assert torch.equal(outs[0][0], outs[1][0])
