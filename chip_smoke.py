@@ -48,10 +48,11 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
 6b. graph: the compiled step. Each tracker's ``track`` replays CUDA
    graphs by default (``utils/graphs.py``; every phase here but this one
    runs that way); this phase holds it against the eager step
-   (``capture=False``) on six paths: the slice, the two objects below, a
-   4-island trial (the truth and three hypotheses 4-8 mm off, a trial
+   (``capture=False``) on seven paths: the slice, the two objects below,
+   a 4-island trial (the truth and three hypotheses 4-8 mm off, a trial
    that outlasts the phase), the Gaussian tracker at 3 and at 6
-   iterations, and its frozen trial step (the same four hypotheses). A
+   iterations, its frozen trial step (the same four hypotheses), and the
+   particle tracker with the "deferred" sensor at 10,000 particles. A
    captured and an eager tracker with the same seed run the same 12
    frames in lockstep: poses and every leaf of the belief (all islands'
    or hypotheses' in a trial) must be equal bit for bit, the kernels'
@@ -128,7 +129,10 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    start; the same readings for the 6-iteration, ``trust_sigma=1.5``
    configuration, the two timed in turns (3, 6, 6, 3 iterations) before
    either is profiled; the one-hot product against the gather at 25
-   poses and at the particle chunk; the batched step over 4 scenes;
+   poses and at the particle chunk; the batched step over 4 scenes as
+   its JAX callers jit it (``graphs.compiled``, beliefs donated),
+   captured against eager over 4 frames bit for bit, ms per step and per
+   scene of both in turns (captured, eager, eager, captured);
 11. rgf_cli: ``record --trajectory teleport`` then ``track --auto-init
    --watchdog --checkpoint`` with a Gaussian config: the watchdog trips
    after the jump at frame 12, the re-init races at least two
@@ -142,7 +146,10 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    rendered first, into a host list, by ``OracleSource`` at the Kinect's
    native 640×480 grid (edge artifacts 0.3, whole millimetres) and
    converted by ``U16CameraAdapter`` (uint16 mm, the native 8× strided
-   downsample); render and conversion are timed per frame. A
+   downsample); render and conversion are timed per frame. The render is
+   captured (one CUDA graph); the first 10 frames are also rendered by
+   an eager twin with the same draws (timed), the first 3 must be equal
+   bit for bit. A
    ``ThreadedSource`` (capacity 8) replays them at 30 Hz from its
    producer thread into ``node.run`` with the slice's particle tracker
    and a socket ``TrackerService``; a client thread sends, through
@@ -158,12 +165,21 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    p90, frames dropped in all, in the pause and in the search, the
    search's seconds, render and conversion ms, ms from push to pose;
 14. scale: the distributed filter (``dbot_ros_tpu_torch.parallel``).
-   One rank under NCCL on the card: ``make_distributed_step(exchange=
-   "counts")`` over the slice's 60 frames at its width (position RMSE
-   under 1 cm, every kernel launched), three forced-resample frames
-   against ``rbcpf_step`` with the same draws, 2 scenes × 10,000
-   particles through the multi-scene step (each under 1 cm), and the
-   step's median ms beside ``track``'s, timed in turns. Then two gloo
+   One rank under NCCL on the card, every step captured (CUDA-graph
+   replays, NCCL collectives inside the graphs):
+   ``make_distributed_step(exchange="counts")`` over the slice's 60
+   frames at its width (position RMSE under 1 cm, every kernel
+   launched), three forced-resample frames against ``rbcpf_step`` with
+   the same draws; then each one-rank step held against its eager twin
+   (``capture=False``) with the same seed in lockstep: the distributed
+   step with ``counts`` and with ``all_gather`` and the island step over
+   the same 12 frames, the multi-scene step with 2 scenes × 10,000
+   particles (the second 3 cm aside) over 30. Means, ESS and every leaf
+   of the belief must be equal bit for bit, the paths and the kernels'
+   launches per frame equal, each scene's position RMSE under 1 cm;
+   step ms median and p90 of both timed in turns (captured, eager,
+   eager, captured) between two turns of the captured ``track`` on the
+   same frame; graphs, capture seconds and pool MB. Then two gloo
    ranks started with ``spawn`` share the card, 5,000 particles each,
    collectives staged through pinned host memory: on a frame whose
    surplus fits the counts buffers (C = 640) and on one that overflows
@@ -171,7 +187,9 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    ``all_gather`` bit for bit in states, log weights and the map's
    particle columns (the lazy ages are compared and reported, not
    required); ms, bytes sent and staging seconds per step per mode; the
-   two-width lineage gather must launch on both ranks; the dry run
+   two-width lineage gather must launch on both ranks; the steps there
+   are eager (``capture: false``: gloo stages through the host) and
+   ``capture=True`` must raise; the dry run
    (``parallel.dryrun``) at world size 2. A rank that fails, or outlives
    its time, fails the phase. One card cannot measure scaling
    efficiency: these are mechanics.
@@ -186,9 +204,10 @@ The kernels line gives each kernel's launches in the slice
 (``launches``), in the live phase (``live_launches``), in the scale
 phase's one-rank run (``scale_launches``), in the objects phase's 60
 frames (``objects_launches``), in the options phase's checks
-(``options_launches``) and in the graph phase's captured runs
-(``graph_launches``), each counted from 0 just before that path and read
-just after.
+(``options_launches``), in the graph phase's captured runs
+(``graph_launches``) and in the scale phase's captured lockstep runs
+(``scale_graph_launches``), each counted from 0 just before that path
+and read just after.
 
 Each phase prints one JSON line; any failure raises (exit code != 0).
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -233,7 +252,7 @@ from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
 from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
-from dbot_ros_tpu_torch.utils import se3
+from dbot_ros_tpu_torch.utils import graphs, se3
 from dbot_ros_tpu_torch.utils.camera import (default_kinect_camera,
                                            make_camera, preprocess_depth)
 from dbot_ros_tpu_torch.utils.mesh import (box_mesh, icosphere_mesh,
@@ -295,8 +314,12 @@ RENDER_FLIP_SHARE, RENDER_DEPTH_ATOL = 0.002, 1e-5
 COVERAGE_FRAME0, COVERAGE_STEADY = 0.45, 0.80
 DEFERRED_FRAMES = 20
 BATCHED_SCENES = 4
+BATCHED_FRAMES = 4
 # the live phase: a 30 Hz camera at 640×480 (8 s), a ring of 8 frames
 LIVE_FRAMES = 240
+# the first frames rendered eagerly too (the same draws), and how many of
+# them must equal the captured render bit for bit
+LIVE_EAGER_FRAMES, LIVE_EAGER_CHECKED = 10, 3
 LIVE_RATE_HZ = 30
 LIVE_CAPACITY = 8
 LIVE_PAUSE_S = 0.3
@@ -379,6 +402,15 @@ WRAPPERS = {"fused_loglik": kernels.fused_loglik,
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def raises(exc, fn):
+    """Whether ``fn()`` raises ``exc``."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
 
 
 def check(cond, msg):
@@ -1402,7 +1434,8 @@ def trial_init(hypotheses, **kw):
 def phase_graph(dev, card):
     """The compiled step against the eager step on each path (see the
     module docstring): the slice, two objects, a 4-island trial, the
-    Gaussian tracker at 3 and 6 iterations and its frozen trial."""
+    Gaussian tracker at 3 and 6 iterations and its frozen trial, the
+    "deferred" particle sensor."""
     cam, mesh, traj = slice_scene()
     ocam, omeshes, otraj = objects_scene()
     slack = box_slack()
@@ -1444,6 +1477,8 @@ def phase_graph(dev, card):
         "rgf_3_trial_4": (gaussian(rgf_config()),
                           trial_init(hyp[:, 0], first_frame=first),
                           frames, depth),
+        "deferred": (particle(deferred_config(), [mesh], cam),
+                     lambda tr: tr.initialize(traj(0)), frames, depth),
     }
     out, total = {}, {k: 0 for k in WRAPPERS}
     for name, (make, init, fr, d) in paths.items():
@@ -2232,36 +2267,61 @@ def select_times(dev, cam, mesh, traj, counts):
 
 
 def batched_step_ms(dev, cam, mesh, traj):
-    """``rgf.make_batched_step`` over BATCHED_SCENES stacked scenes: ms per
-    step, and that scene 0 equals the single step."""
+    """``rgf.make_batched_step`` over BATCHED_SCENES stacked scenes as its
+    JAX callers jit it: through ``graphs.compiled`` with the beliefs
+    donated, captured against eager (``capture=False``) over
+    BATCHED_FRAMES frames bit for bit, then ms per step of both in turns
+    (captured, eager, eager, captured); scene 0 of the eager step against
+    the tracker's single step."""
     tracker = GaussianTracker(rgf_config(), meshes=[mesh], camera=cam,
                               device=dev)
-    frames = list(sources.SyntheticSource([mesh], cam, traj, 2, seed=SEED))
+    frames = list(sources.SyntheticSource([mesh], cam, traj,
+                                          BATCHED_FRAMES + 1, seed=SEED))
     tracker.initialize(traj(0), first_frame=frames[0].depth)
-    z = tracker._frame(frames[1].depth)
     conf = tracker.config
-    step = rgf.make_batched_step(
+    plain = rgf.make_batched_step(
         tracker.render_fn, tracker.trans_params, tracker._dt,
         tracker.beam_params, iterations=conf.update_iterations,
         trust_sigma=conf.trust_sigma, occ_params=tracker._occ_params)
-    beliefs = rgf.stack_beliefs([tracker.belief] * BATCHED_SCENES)
-    zs = torch.stack([z] * BATCHED_SCENES)
-    nb, _ = step(beliefs, zs)
-    single, _ = tracker._step(tracker.belief, z, tracker._dt)
-    err = float((nb.mean[0] - single.mean).abs().max())
+    steps = {c: graphs.compiled(plain, dev, c, donate=True)
+             for c in (True, False)}
+    start = rgf.stack_beliefs([tracker.belief] * BATCHED_SCENES)
+    beliefs = {c: dataclasses.replace(start, **{
+        f.name: getattr(start, f.name).clone()
+        for f in dataclasses.fields(start)
+        if getattr(start, f.name) is not None}) for c in steps}
+    diff = 0.0
+    for i, frame in enumerate(frames[1:]):
+        zs = torch.stack([tracker._frame(frame.depth)] * BATCHED_SCENES)
+        out = {c: step(beliefs[c], zs) for c, step in steps.items()}
+        for a, b in zip(leaves_of(list(out[True])),
+                        leaves_of(list(out[False]))):
+            diff = max(diff, bit_diff(a, b))
+        if i == 0:
+            single, _ = tracker._step(tracker.belief, zs[0], tracker._dt)
+            err = float((out[False][0].mean[0] - single.mean).abs().max())
+        beliefs = {c: o[0] for c, o in out.items()}
+    check(diff <= GRAPH_ATOL,
+          f"batched step: captured against eager {diff}")
     check(err <= 1e-5, f"batched step differs from the single step: {err}")
-    ms = []
-    for i in range(WARMUP + 10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(beliefs, zs)
-        torch.cuda.synchronize()
-        if i >= WARMUP:
-            ms.append(1e3 * (time.perf_counter() - t0))
-    med = statistics.median(ms)
-    return {"scenes": BATCHED_SCENES, "ms_per_step": med,
-            "ms_per_scene": med / BATCHED_SCENES,
-            "max_abs_err_vs_single": err}
+    ms = {True: [], False: []}
+    for c in (True, False, False, True):
+        for i in range(WARMUP + 10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beliefs[c], _ = steps[c](beliefs[c], zs)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                ms[c].append(1e3 * (time.perf_counter() - t0))
+    out = {"scenes": BATCHED_SCENES, "frames": BATCHED_FRAMES,
+           "tolerance": GRAPH_ATOL, "max_abs_diff_captured_eager": diff,
+           "max_abs_err_vs_single": err,
+           **steps[True].program.stats()}
+    for c, mode in ((True, "captured"), (False, "eager")):
+        med = statistics.median(ms[c])
+        out[mode] = {"ms_per_step": med,
+                     "ms_per_scene": med / BATCHED_SCENES}
+    return out
 
 
 def phase_rgf(dev):
@@ -2338,6 +2398,12 @@ def sensor_chunk(dev, cam):
     return deferred_particle_chunk(P, cam.num_pixels, 4, device=dev)
 
 
+def deferred_config():
+    return cfg.ParticleTrackerConfig(
+        evaluation_count=P, backend="deferred", seed=SEED,
+        transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
+
+
 def phase_deferred(dev):
     """The particle tracker with the candidate-set ("deferred") sensor at
     the slice's width (see the module docstring)."""
@@ -2347,10 +2413,8 @@ def phase_deferred(dev):
     held_before = torch.cuda.memory_allocated()
     for w in WRAPPERS.values():
         w.launches = 0
-    conf = cfg.ParticleTrackerConfig(
-        evaluation_count=P, backend="deferred", seed=SEED,
-        transition=cfg.TransitionConfig(0.1, 0.5, damping=4.0))
-    tracker = ParticleTracker(conf, meshes=[mesh], camera=cam, device=dev)
+    tracker = ParticleTracker(deferred_config(), meshes=[mesh], camera=cam,
+                              device=dev)
     source = sources.SyntheticSource([mesh], tracker.camera, traj,
                                      DEFERRED_FRAMES, seed=SEED)
     run = node.run(tracker, source)
@@ -2413,23 +2477,36 @@ def render_live_frames(dev, cam, mesh, traj):
     oracle = sources.OracleSource(mesh, native_cam, traj, LIVE_FRAMES,
                                   edge_artifacts=0.3, quantize_mm=True,
                                   seed=SEED)
+    eager = sources.OracleSource(mesh, native_cam, traj, LIVE_FRAMES,
+                                 edge_artifacts=0.3, quantize_mm=True,
+                                 seed=SEED, capture=False)
+    check(oracle._render.program.capture, "live: the render is eager")
     adapter = sources.U16CameraAdapter(oracle, 8)
-    frames, render_ms, u16_ms = [], [], []
+    frames, render_ms, u16_ms, eager_ms = [], [], [], []
     for t in range(LIVE_FRAMES):
         poses, occ, p_drop = oracle.frame_inputs(t)
-        draws = oracle.draw()
+        args = (torch.as_tensor(poses, device=dev),
+                torch.as_tensor(occ, device=dev), p_drop, oracle.draw())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        z = oracle.render(torch.as_tensor(poses, device=dev),
-                          torch.as_tensor(occ, device=dev), p_drop,
-                          draws).cpu().numpy()
+        z = oracle.render(*args).cpu().numpy()
         t1 = time.perf_counter()
         depth = adapter.convert(z)
         t2 = time.perf_counter()
         frames.append(sources.Frame(t, depth, poses))
         render_ms.append(1e3 * (t1 - t0))
         u16_ms.append(1e3 * (t2 - t1))
-    return frames, native_cam, render_ms, u16_ms
+        if t < LIVE_EAGER_FRAMES:
+            # the same draws through the eager render
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ze = eager.render(*args).cpu().numpy()
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
+            if t < LIVE_EAGER_CHECKED:
+                check(np.array_equal(z, ze, equal_nan=True),
+                      f"live: captured render differs from eager on "
+                      f"frame {t}")
+    return frames, native_cam, render_ms, u16_ms, eager_ms
 
 
 def live_client(sock, traj, ckpt, frames_left, log):
@@ -2516,7 +2593,7 @@ def live_in(dev, card, tmp):
     from dbot_ros_tpu_torch.runtime.service import TrackerService
 
     cam, mesh, traj = slice_scene()
-    frames, native_cam, render_ms, u16_ms = render_live_frames(
+    frames, native_cam, render_ms, u16_ms, eager_ms = render_live_frames(
         dev, cam, mesh, traj)
     check(frames[0].depth.shape == (cam.height, cam.width),
           f"converted frame {frames[0].depth.shape}")
@@ -2636,6 +2713,11 @@ def live_in(dev, card, tmp):
           "push_to_pose_ms_median": float(np.median(push_pose)),
           "push_to_pose_ms_p90": float(np.percentile(push_pose, 90)),
           "oracle_render_ms_median": statistics.median(render_ms),
+          "oracle_render_ms_median_first_frames": {
+              "frames": f"1-{LIVE_EAGER_FRAMES - 1}",
+              "captured": statistics.median(render_ms[1:LIVE_EAGER_FRAMES]),
+              "eager": statistics.median(eager_ms[1:])},
+          "render_captured_equals_eager_frames": LIVE_EAGER_CHECKED,
           "u16_convert_ms_median": statistics.median(u16_ms),
           "last30_max_error_m": float(err[-LIVE_LAST_FRAMES:].max()),
           "position_rmse_m": run.position_rmse(),
@@ -2720,10 +2802,8 @@ def scale_against_rbcpf(dev, comm, tracker, traj, source, belief):
         max_kl_divergence=-1.0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    mine = dataclasses.replace(belief, occlusion=tuple(
-        x.clone() for x in belief.occlusion))
-    ref = dataclasses.replace(belief, occlusion=tuple(
-        x.clone() for x in belief.occlusion))
+    # the step's belief is its program's buffers: copies for both
+    mine, ref = clone_belief(belief), clone_belief(belief)
     worst = {"states": 0.0, "log_weights": 0.0, "mean": 0.0, "occ": 0.0,
              "moved": 0}
     for t in range(3):
@@ -2755,61 +2835,192 @@ def scale_against_rbcpf(dev, comm, tracker, traj, source, belief):
     return worst
 
 
-def scale_scenes(dev):
-    """Two scenes of 10,000 particles each (the second 3 cm aside) through
-    the multi-scene step on one rank; each scene's position RMSE."""
-    groups = dist_filter.make_scene_groups(1, 1)
-    tracker, traj, block = scale_scene(dev, P)
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64,
+         torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def bit_diff(a, b):
+    """0.0 where ``a`` and ``b`` hold the same bits (NaNs included), else
+    the largest |a - b| (inf where only NaNs or infinities differ)."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"layouts differ: {a.shape} {a.dtype}, {b.shape} {b.dtype}")
+    if torch.equal(*(x.view(_BITS.get(x.dtype, x.dtype)) for x in (a, b))):
+        return 0.0
+    d = float(torch.nan_to_num((a.double() - b.double()).abs(),
+                               nan=float("inf")).max())
+    return d if d > 0 else float("inf")
+
+
+def leaves_of(x):
+    """Every tensor of a tensor, a dataclass (a belief, a step's info) or
+    a list or tuple of them."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in leaves_of(y)]
+    if dataclasses.is_dataclass(x):
+        return leaves_of([getattr(x, f.name)
+                          for f in dataclasses.fields(x)])
+    return []
+
+
+def scale_step_paths(dev, comm, tracker, traj):
+    """The one-rank steps of the scale phase, each a maker of a step
+    (``capture``), its start belief, its frames (z per frame), its
+    truth per frame (scenes, K, 3) and how many frames it runs."""
+    tp, sensor, dt = tracker.trans_params, tracker.sensor, tracker._dt
+    kl = tracker.config.max_kl_divergence
 
     def traj2(t):
         return traj(t) + np.array([[0.03, 0, 0, 0, 0, 0, 0]], np.float32)
 
-    trajs = [traj, traj2]
-    srcs = [sources.SyntheticSource(tracker.meshes, tracker.camera, tr,
-                                    SCALE_SCENE_FRAMES, seed=SEED + s)
-            for s, tr in enumerate(trajs)]
-    beliefs = dist_filter.init_multi_scene_belief(
-        groups, torch.stack([base.to_center_frame(
-            torch.as_tensor(tr(0), device=dev), tracker.centers)
-            for tr in trajs]), SCALE_SCENES, P,
-        sensor=tracker.sensor, device=dev)
-    step = dist_filter.make_multi_scene_step(
-        groups, tracker.sensor, tracker.trans_params, tracker._dt,
-        max_kl_divergence=tracker.config.max_kl_divergence, seed=SEED)
-    err = []
-    for t, frames in enumerate(zip(*srcs)):
-        z = torch.stack([preprocess_depth(torch.as_tensor(
-            f.depth, device=dev).reshape(-1)) for f in frames])
-        beliefs, means, _ = step(beliefs, z)
-        err.append(torch.stack([
-            model_position(tracker, means[s]) - torch.as_tensor(
-                trajs[s](t)[:, :3], device=dev)
-            for s in range(SCALE_SCENES)]))
-    rmse = torch.sqrt(torch.stack(err).pow(2).sum(-1).mean(0)).reshape(-1)
-    rmse = [float(r) for r in rmse]
-    check(max(rmse) < RMSE_LIMIT_M, f"scale: scene RMSE {rmse} m")
-    return rmse
+    def frames_of(trajs, count):
+        srcs = [sources.SyntheticSource(tracker.meshes, tracker.camera, tr,
+                                        count, seed=SEED + s)
+                for s, tr in enumerate(trajs)]
+        zs = [torch.stack([preprocess_depth(torch.as_tensor(
+            f.depth, device=dev).reshape(-1)) for f in fr])
+            for fr in zip(*srcs)]
+        truth = [np.stack([tr(t)[:, :3] for tr in trajs])
+                 for t in range(count)]
+        return zs, truth
+
+    def center(tr):
+        return base.to_center_frame(torch.as_tensor(tr(0), device=dev),
+                                    tracker.centers)
+
+    one, one_truth = frames_of([traj], GRAPH_FRAMES + 1)
+    two, two_truth = frames_of([traj, traj2], SCALE_SCENE_FRAMES + 1)
+    one = [z[0] for z in one]
+    groups = dist_filter.make_scene_groups(1, 1)
+
+    def dist_start():
+        return dist_filter.init_distributed_belief(comm, center(traj), P,
+                                                   sensor=sensor)
+
+    def distributed(exchange):
+        return (lambda capture: dist_filter.make_distributed_step(
+            comm, sensor, tp, dt, max_kl_divergence=kl, exchange=exchange,
+            seed=SEED, capture=capture), dist_start, one, one_truth)
+
+    return {
+        "distributed_counts": distributed("counts"),
+        "distributed_all_gather": distributed("all_gather"),
+        "island": (lambda capture: dist_filter.make_island_step(
+            comm, sensor, tp, dt, max_kl_divergence=kl, seed=SEED,
+            capture=capture), dist_start, one, one_truth),
+        "multi_scene_2x10k": (
+            lambda capture: dist_filter.make_multi_scene_step(
+                groups, sensor, tp, dt, max_kl_divergence=kl, seed=SEED,
+                capture=capture),
+            lambda: dist_filter.init_multi_scene_belief(
+                groups, torch.stack([center(traj), center(traj2)]),
+                SCALE_SCENES, P, sensor=sensor), two, two_truth)}
 
 
-def scale_times(dev, step, belief, tracker, source, traj):
-    """Median ms of the one-rank counts step and of ``track`` on the same
-    frame, timed in turns (step, track, track, step)."""
-    z = depth_of(source, traj, FRAMES, dev)
-    depth = z.cpu()
-    tracker.restore(tracker.belief)
-    out = {"step": [], "track": []}
-    for name in ("step", "track", "track", "step"):
-        for i in range(WARMUP + TIMING_RUNS):
+def scale_lockstep(tracker, make, start, frames, truth):
+    """A captured and an eager step (``make(capture)``) from the same start
+    belief over the same frames (all but the last) in lockstep: the
+    largest difference of means, ESS and beliefs after each frame, the
+    launches per frame, the paths, the captured run's position RMSE per
+    scene; then step ms in turns with the captured ``track`` on the last
+    frame."""
+    steps = {c: make(c) for c in (True, False)}
+    check(steps[True].capture and not steps[False].capture,
+          "scale: the one-rank NCCL step is not captured by default")
+    beliefs = {c: start() for c in (True, False)}
+    per_frame = {True: [], False: []}
+    diff = {"mean": 0.0, "ess": 0.0, "belief": 0.0}
+    paths, err = set(), []
+    for t, z in enumerate(frames[:-1]):
+        out = {}
+        for c, step in steps.items():
+            before = {k: w.launches for k, w in WRAPPERS.items()}
+            beliefs[c], mean, ess = step(beliefs[c], z)
+            per_frame[c].append({k: w.launches - before[k]
+                                 for k, w in WRAPPERS.items()})
+            out[c] = (mean.reshape(-1, *mean.shape[-2:]), ess)
+        check(steps[True].paths == steps[False].paths,
+              f"scale: paths {steps[True].paths} against "
+              f"{steps[False].paths}")
+        paths.update(steps[True].paths)
+        for k, a, b in (("mean", out[True][0], out[False][0]),
+                        ("ess", out[True][1], out[False][1])):
+            diff[k] = max(diff[k], bit_diff(a, b))
+        for a, b in zip(leaves_of(beliefs[True]), leaves_of(beliefs[False])):
+            diff["belief"] = max(diff["belief"], bit_diff(a, b))
+        pos = torch.stack([model_position(tracker, m)
+                           for m in out[True][0]]).cpu().numpy()
+        err.append(np.linalg.norm(pos - truth[t], axis=-1))
+    rmse = np.sqrt(np.mean(np.square(err), axis=0)).reshape(-1).tolist()
+    launches = {k: sum(f[k] for f in per_frame[True]) for k in WRAPPERS}
+    check(per_frame[True] == per_frame[False],
+          f"scale: launches per frame captured {per_frame[True]} against "
+          f"eager {per_frame[False]}")
+    check(all(v <= GRAPH_ATOL for v in diff.values()),
+          f"scale: captured against eager {diff}")
+    check(max(rmse) < RMSE_LIMIT_M, f"scale: position RMSE {rmse} m")
+    check(all(launches[k] > 0 for k in WRAPPERS),
+          f"scale: a kernel never launched captured {launches}")
+    # timed in turns: track, captured, eager, eager, captured, track
+    z, depth = frames[-1], frames[-1].reshape(-1, frames[-1].shape[-1])[0]
+    depth = depth.cpu()
+    ms = {"track": [], True: [], False: []}
+    for who in ("track", True, False, False, True, "track"):
+        turn = []
+        for i in range(WARMUP + GRAPH_TIMING_RUNS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if name == "step":
-                belief, _, _ = step(belief, z)
-            else:
+            if who == "track":
                 tracker.track(depth)
+            else:
+                beliefs[who], _, _ = steps[who](beliefs[who], z)
             torch.cuda.synchronize()
             if i >= WARMUP:
-                out[name].append(1e3 * (time.perf_counter() - t0))
-    return {k: statistics.median(v) for k, v in out.items()}
+                turn.append(1e3 * (time.perf_counter() - t0))
+        ms[who].append(turn)
+
+    def summary(turns):
+        flat = sorted(x for t in turns for x in t)
+        return {"ms_median": statistics.median(flat),
+                "ms_p90": flat[int(0.9 * (len(flat) - 1))],
+                "ms_median_by_turn": [statistics.median(t) for t in turns]}
+
+    progs = getattr(steps[True], "programs", None) or [steps[True].program]
+    stats = {}
+    for prog in progs:
+        for k, v in prog.stats().items():
+            stats[k] = stats.get(k, 0) + v
+    res = {"frames": len(frames) - 1, "paths": sorted(paths),
+           "position_rmse_m": rmse, "tolerance": GRAPH_ATOL,
+           "max_abs_diff": diff, "launches": launches,
+           "launches_per_frame": {
+               json.dumps(f, sort_keys=True): per_frame[True].count(f)
+               for f in per_frame[True]},
+           "captured": summary(ms[True]), "eager": summary(ms[False]),
+           "track_captured": summary(ms["track"]),
+           "programs": len(progs), "graphs": stats["graphs"],
+           "capture_seconds": stats["capture_seconds"],
+           "pool_mb": stats["pool_bytes"] / 2 ** 20,
+           "buffer_mb": stats["buffer_bytes"] / 2 ** 20}
+    res["median_ratio_eager_to_captured"] = (
+        res["eager"]["ms_median"] / res["captured"]["ms_median"])
+    return res, launches
+
+
+def scale_steps(dev, comm, tracker, traj):
+    """Each one-rank step captured against eager (see the module
+    docstring) → (results by path, the captured runs' launches)."""
+    out, total = {}, {k: 0 for k in WRAPPERS}
+    for name, (make, start, frames, truth) in scale_step_paths(
+            dev, comm, tracker, traj).items():
+        out[name], launches = scale_lockstep(tracker, make, start, frames,
+                                             truth)
+        for k in WRAPPERS:
+            total[k] += launches[k]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out, total
 
 
 def marked_block(dev, tracker, block, rank):
@@ -2879,6 +3090,8 @@ def scale_rank(rank, world, port, out_dir, device):
             step = dist_filter.make_distributed_step(
                 comm, tracker.sensor, still, tracker._dt,
                 max_kl_divergence=-1.0, exchange=mode)
+            check(step.capture is False,
+                  f"scale: the gloo step {mode} is captured")
             start = dataclasses.replace(
                 base_block, log_weights=lw.clone(),
                 occlusion=tuple(x.clone() for x in base_block.occlusion))
@@ -2936,6 +3149,12 @@ def scale_rank(rank, world, port, out_dir, device):
                                        - bytes0) / SCALE_STEPS
         res["staging_s_per_step"][mode] = ((comm.staging_seconds - stage0)
                                            / SCALE_STEPS)
+    res["capture"] = False
+    res["capture_true_raises"] = raises(
+        ValueError, lambda: dist_filter.make_distributed_step(
+            comm, tracker.sensor, still, tracker._dt, capture=True))
+    check(res["capture_true_raises"],
+          "scale: capture=True over gloo did not raise")
     res["dryrun"] = dryrun.dryrun(dev, SCALE_GROUP_TIMEOUT_S)
     torch.cuda.synchronize()
     res["launches"] = {k: w.launches for k, w in WRAPPERS.items()}
@@ -2987,22 +3206,25 @@ def phase_scale(dev, card):
          paths) = scale_track(dev, comm)
         versus = scale_against_rbcpf(dev, comm, tracker, traj, source,
                                      belief)
-        times = scale_times(dev, step, belief, tracker, source, traj)
-        del tracker, belief, step
-        scene_rmse = scale_scenes(dev)
+        capture = step.capture
+        del belief, step
+        torch.cuda.empty_cache()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        steps, graph_launches = scale_steps(dev, comm, tracker, traj)
+        del tracker
     finally:
         torch.distributed.destroy_process_group()
     one_rank_s = time.perf_counter() - t0
     ranks, two_s = scale_two_ranks(dev)
     emit({"phase": "scale", "nvidia_smi": card,
           "one_rank": {"backend": SCALE_BACKEND, "world": 1,
-                       "particles": P, "frames": FRAMES,
+                       "capture": capture, "particles": P, "frames": FRAMES,
                        "position_rmse_m": rmse, "paths": paths,
                        "launches": launches,
                        "against_rbcpf_step": versus,
-                       "scene_position_rmse_m": scene_rmse,
-                       "step_ms_median": times["step"],
-                       "track_ms_median": times["track"],
+                       "captured_against_eager": steps,
+                       "scale_graph_launches": graph_launches,
                        "seconds": one_rank_s},
           "two_ranks": {"transport": "gloo, staged through pinned host "
                                      "memory, both ranks on one card",
@@ -3010,7 +3232,7 @@ def phase_scale(dev, card):
                         P // SCALE_RANKS, "capacity":
                         dist_filter.counts_capacity(P // SCALE_RANKS),
                         "seconds": two_s, "ranks": ranks}})
-    return launches
+    return launches, graph_launches
 
 
 def main(argv=None):
@@ -3037,11 +3259,12 @@ def main(argv=None):
     phase_cli(dev, kind="gaussian")
     phase_deferred(dev)
     live_launches = phase_live(dev, card)
-    scale_launches = phase_scale(dev, card)
+    scale_launches, scale_graph_launches = phase_scale(dev, card)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "live_launches": live_launches[name],
          "scale_launches": scale_launches[name],
+         "scale_graph_launches": scale_graph_launches[name],
          "objects_launches": objects_launches[name],
          "options_launches": options_launches[name],
          "graph_launches": graph_launches[name],

@@ -208,6 +208,40 @@ def summarize(belief: ParticleBelief, loglik, resampled, kl) -> StepInfo:
                     mean_loglik=torch.sum(weights * loglik))
 
 
+def program_block(prog, sensor, b: int, belief: ParticleBelief, z_obs, dt,
+                  trans_params: TransitionParams, noise: BlockNoise, rest):
+    """Coordinate block ``b`` through the step program ``prog``
+    (utils/graphs.py): :func:`propose_block` into the states buffer of
+    ``belief`` (the program's) and, with a sensor split at its host read
+    (``plan_device``), a ``("propose", b)`` graph that ends with the
+    sensor's device work before the read, the read
+    (``choose_level``), and ``rest(states, plan)`` as the level's
+    ``("level", b, level)`` graph; with another sensor one ``("block",
+    b)`` graph (``plan`` None). Returns what ``rest`` returned."""
+    split = hasattr(sensor, "plan_device")
+
+    def propose():
+        states = prog.keep("belief.states", propose_block(
+            belief.states, b, dt, trans_params, noise))
+        plan = (prog.keep("plan", sensor.plan_device(states, z_obs, dt))
+                if split else None)
+        return states, plan
+
+    if not split:
+        return prog.run(("block", b), lambda: rest(*propose()))
+    states, plan = prog.run(("propose", b), propose)
+    plan = sensor.choose_level(plan)
+    return prog.run(("level", b, plan.level), lambda: rest(states, plan))
+
+
+def sense(sensor, plan, states, occ, z_obs, dt, commit: bool):
+    """A block's sensor call in :func:`program_block`'s ``rest``:
+    ``apply`` of the plan where the sensor is split, else the call."""
+    if plan is None:
+        return sensor(states, occ, z_obs, dt, commit=commit)
+    return sensor.apply(plan, states, occ, z_obs, commit=commit)
+
+
 def occlusion_gather(loglik_fn):
     """The sensor's lineage gather of its occlusion leaf (its
     ``gather_occlusion`` hook), else a row gather of a (P, N) map."""

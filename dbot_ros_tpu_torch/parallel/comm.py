@@ -31,6 +31,19 @@ Every group gets a timeout (:func:`init_process_group`, :func:`new_group`),
 so a rank that skips a collective makes its peers fail, not hang.
 ``bytes_sent`` counts, per call kind, the payload bytes this rank's
 tensors carried to the other ranks.
+
+**CUDA graphs.** A comm is ``capturable`` when a CUDA graph can hold its
+collectives: its backend is NCCL, whose collectives are kernels on the
+card, so its tensors are never staged. A gloo group that carries CUDA
+tensors stages them through pinned host memory (``_to_wire``), a copy to
+the host and a wait for it, which a capture forbids: steps over gloo run
+eagerly. NCCL's communicator must be warm before a capture: the first
+collective of :func:`init_process_group` starts it, and a step program
+runs each graph's function eagerly once before capturing it. A replayed
+collective is not watched by c10d's timeout (it is a node of the graph,
+not a work item of the group): a rank that stops replaying hangs its
+peers' replays. ``counters()`` names the byte counts for a step program
+to carry over replays, which run no Python.
 """
 
 from __future__ import annotations
@@ -107,6 +120,16 @@ class Comm:
                         else r for r in range(self.size)]
         self.staging_seconds = 0.0
         self.bytes_sent = {"all_gather": 0, "all_reduce": 0, "ppermute": 0}
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this group's collectives (NCCL;
+        see the module docstring)."""
+        return self.backend == "nccl"
+
+    def counters(self):
+        """``(dict, key)`` of each byte count, for a step program."""
+        return tuple((self.bytes_sent, k) for k in self.bytes_sent)
 
     def staged(self, t: torch.Tensor) -> bool:
         """Whether ``t`` goes through pinned host buffers: a CUDA tensor

@@ -36,6 +36,24 @@ replay JAX's draws), or draws ``e1``/``e2`` from a rank-local generator
 and ``u`` from a shared one, seeded alike on every rank and advanced by
 one draw per block whether or not the trigger fires.
 
+**The compiled step.** As the reference jits each step with the belief
+donated, a step runs through a step program (utils/graphs.py): on the
+card under NCCL its graphs are captured and replayed; over gloo, whose
+collectives stage through the host, and with ``capture=False`` the same
+functions run eagerly through the same buffers (:func:`resolve_capture`;
+``capture=True`` over gloo raises). The body is split at its host reads,
+and each graph is keyed by what the host read before it: per block a
+proposal graph and, after the fused sensor's ladder read, one graph per
+level that holds the weights, the normalizers and the resampling up to
+its own read; where a read picks the exchange (the trigger, the hop span
+or the counts' surplus; none on one rank), one graph per path after it.
+The random numbers are drawn into named buffers from the same generators
+before the replays, or the caller's noise is copied there. The belief is
+donated: a step returns the program's buffers. ``plain`` is each step
+without a program, the reference the programmed step is held to.
+Captured steps at world size >= 2 need one card per rank and are not
+verified yet (NCCL refuses two ranks on one card).
+
 **Occlusion leaf.** The sensor's hooks (``gather_occlusion`` with
 ``num_in``, ``where_occlusion``, ``concat_occlusion``,
 ``particle_stride``: the fused sensor's ``(n_pad, p_pad)`` map and lazy
@@ -53,10 +71,11 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from dbot_ros_tpu_torch.filters import rbcpf
 from dbot_ros_tpu_torch.filters.rbcpf import BlockNoise, ParticleBelief
-from dbot_ros_tpu_torch.models.transition import (TransitionParams,
-                                                  sample_transition)
+from dbot_ros_tpu_torch.models.transition import TransitionParams
 from dbot_ros_tpu_torch.parallel import comm as comm_mod
+from dbot_ros_tpu_torch.utils import graphs
 
 EXCHANGES = ("counts", "neighbor", "ring", "all_gather")
 
@@ -230,17 +249,54 @@ def counts_capacity(p_local: int, capacity: int = None) -> int:
     return min(_round_up128(C), _round_up128(p_local))
 
 
-def _resample_block(states, log_w, occ, old_loglik, *, do, ln, u, comm,
-                    exchange, max_hops, capacity, hooks, trace):
-    """Global systematic resampling of one coordinate block's aftermath →
-    (states, log_w, occ, old_loglik). Every exchange gives the all-gather
-    resampler's output bit for bit; they differ only in how parent
-    occlusion rows cross ranks. The trigger ``do`` where-selects between
-    the systematic parents and the identity; the counts exchange runs its
-    collectives every frame, the others only on resample frames. The
-    path taken is appended to ``trace`` (``"local"``, ``"none"``,
-    ``"all_gather"``, ``"ring"``, ``"neighbor"``, ``"counts"``)."""
-    occ_gather, occ_where, occ_concat, occ_stride = hooks
+def _static_path(exchange, n_shards, max_hops, capacity, p_local):
+    """The exchange every block takes where no host read decides it:
+    ``"local"`` on one rank, ``"counts"`` where its buffers cannot
+    overflow; else None."""
+    if n_shards == 1:
+        return "local"
+    if (exchange == "counts" and max_hops >= n_shards // 2
+            and counts_capacity(p_local, capacity) >= p_local):
+        return "counts"
+    return None
+
+
+def _choose_path(exchange, n_shards, max_hops, capacity, p_local, read):
+    """The exchange of one block: the static one, else from the host's one
+    read of ``read`` (values out of a collective, the same on every rank,
+    so every rank takes the same branch and the collective order stays
+    uniform)."""
+    path = _static_path(exchange, n_shards, max_hops, capacity, p_local)
+    if path is not None:
+        return path
+    vals = [int(v) for v in read.tolist()]
+    if exchange == "counts":
+        span, m_max = vals
+        return ("counts" if span <= max_hops
+                and m_max <= counts_capacity(p_local, capacity) else "ring")
+    if not vals[0]:
+        return "none"
+    if exchange == "all_gather":
+        return "all_gather"
+    if exchange == "ring" or len(vals) == 1:
+        return "ring"
+    return "ring" if vals[1] > max_hops else "neighbor"
+
+
+def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
+                      exchange, max_hops, capacity, hooks):
+    """Global systematic resampling of one coordinate block's aftermath, up
+    to the host read that picks its exchange → (ex, read). ``ex`` holds
+    the new ``states``, ``log_w`` and ``old_loglik`` and what the
+    exchange takes; ``read`` the int64 values the read picks the path
+    from (None where the path is static, :func:`_static_path`). Every
+    exchange gives the all-gather resampler's output bit for bit; they
+    differ only in how parent occlusion rows cross ranks. The trigger
+    ``do`` where-selects between the systematic parents and the identity;
+    the counts exchange runs its collectives every frame, the others only
+    on resample frames (the neighbour exchange's hop span is reduced on
+    every frame, so that one read picks its path)."""
+    occ_gather = hooks[0]
     idx, S = comm.rank, comm.size
     p_local, K = states.shape[:2]
     dev = log_w.device
@@ -264,77 +320,24 @@ def _resample_block(states, log_w, occ, old_loglik, *, do, ln, u, comm,
 
     parents = shard_parents(idx)
     picked = packed_all.index_select(0, parents)
-    new_old_loglik = picked[:, 1].contiguous()
-    new_states = picked[:, 2:].reshape(p_local, K, 13)
-    new_log_w = torch.where(do, torch.zeros_like(log_w), log_w)
-
+    ex = {"states": picked[:, 2:].reshape(p_local, K, 13),
+          "log_w": torch.where(do, torch.zeros_like(log_w), log_w),
+          "old_loglik": picked[:, 1].contiguous(), "parents": parents}
     owner = torch.div(parents, p_local, rounding_mode="floor")
     local_idx = torch.clamp(parents - idx * p_local, 0, p_local - 1)
-
     if S == 1:
         # one rank: every parent is local, the exchange is the lineage
         # gather (no collective, no host read)
-        trace.append("local")
-        return (new_states, new_log_w, occ_gather(occ, local_idx),
-                new_old_loglik)
-
-    def ppermute(x, pairs):
-        return _tree_map(lambda leaf: comm.ppermute(leaf, pairs), x)
-
-    def pluck(out, blk, src):
-        """Copy the rows of ``parents`` owned by rank ``src`` from blk."""
-        src_idx = torch.clamp(parents - src * p_local, 0, p_local - 1)
-        mask = (parents >= src * p_local) & (parents < (src + 1) * p_local)
-        return occ_where(mask, occ_gather(blk, src_idx), out)
-
-    def full_ring(occ):
-        # at round r this rank holds rank (idx + r) % S's block, copies
-        # the rows it owns, and passes the block along the ring
-        ring = [(i, (i - 1) % S) for i in range(S)]
-        held = occ
-        out = _tree_map(torch.zeros_like, occ)
-        for r in range(S):
-            out = pluck(out, held, (idx + r) % S)
-            if r < S - 1:
-                held = ppermute(held, ring)
-        return out
-
-    # `do` is kl > max_kl with kl from all-reduced sums: the same on every
-    # rank, so each host branch on it keeps the collective order uniform
-    if exchange != "counts" and not bool(do):
-        trace.append("none")
-        return new_states, new_log_w, occ, new_old_loglik
-    if exchange == "all_gather":
-        trace.append("all_gather")
-        stride = occ_stride(p_local)
-        occ_all = _tree_map(comm.all_gather, occ)           # (S, ...)
-        blocks = [_tree_map(lambda x, s=s: x[s], occ_all) for s in range(S)]
-        combined = occ_concat(blocks, p_local)
-        gidx = owner * stride + (parents - owner * p_local)
-        new_occ = occ_gather(combined, gidx, num_in=S * stride)
-        return new_states, new_log_w, new_occ, new_old_loglik
-
-    if exchange == "ring" or (exchange == "neighbor"
-                              and S <= 2 * max_hops + 1):
-        trace.append("ring")
-        return new_states, new_log_w, full_ring(occ), new_old_loglik
-
-    if exchange == "neighbor":
-        d = owner - idx
-        span = comm.all_reduce(torch.maximum(d.max(), -d.min()), "max")
-        # span comes from a max-reduce: the same branch on every rank
-        if int(span) > max_hops:
-            trace.append("ring")
-            return new_states, new_log_w, full_ring(occ), new_old_loglik
-        trace.append("neighbor")
-        out = _tree_map(torch.zeros_like, occ)
-        out = pluck(out, occ, idx)
-        for h in range(1, max_hops + 1):
-            for s in (h, -h):
-                # blk on rank i is rank (i + s) mod S's block
-                blk = ppermute(occ, [((i + s) % S, i) for i in range(S)])
-                out = pluck(out, blk, (idx + s) % S)
-        return new_states, new_log_w, out, new_old_loglik
+        ex["local_idx"] = local_idx
+        return ex, None
+    ex["owner"] = owner
+    if exchange != "counts":
+        read = [do.to(torch.int64)]
+        if exchange == "neighbor" and S > 2 * max_hops + 1:
+            d = owner - idx
+            read.append(comm.all_reduce(torch.maximum(d.max(), -d.min()),
+                                        "max"))
+        return ex, torch.stack(read)
 
     # counts: locally owned parent rows (all of them on frames without a
     # resample) come from one lineage gather; remote rows ride per-hop
@@ -369,7 +372,7 @@ def _resample_block(states, log_w, occ, old_loglik, *, do, ln, u, comm,
     # receiver-side slots into the concatenated buffers (one C-column
     # block per hop, stride occ_stride(C)): offspring j's parent sits at
     # its distinct-rank within the run of parents its source owns
-    Cs = occ_stride(C)
+    Cs = hooks[3](C)
     chg_mine = torch.cat([one, parents[1:] != parents[:-1]])
     cidx = torch.zeros((p_local,), dtype=torch.int64, device=dev)
     for h, s in enumerate(hops):
@@ -377,38 +380,104 @@ def _resample_block(states, log_w, occ, old_loglik, *, do, ln, u, comm,
         mask = owner == src
         slotm = torch.cumsum((mask & chg_mine).to(torch.int64), 0) - 1
         cidx = torch.where(mask, h * Cs + slotm, cidx)
-
-    loc = occ_gather(occ, local_idx)
-
-    def counts_path(loc):
-        bufs = []
-        for s, rows in zip(hops, plans):
-            buf = occ_gather(occ, rows, num_in=occ_stride(p_local))
-            bufs.append(ppermute(buf, [(i, (i + s) % S) for i in range(S)]))
-        combined = occ_concat(bufs, C)
-        remote = occ_gather(combined, cidx, num_in=Cs * len(hops))
-        return occ_where(owner != idx, remote, loc)
-
-    ok = max_hops >= S // 2 and C >= p_local      # overflow impossible
-    if not ok:
-        # span and m_max come from a max-reduce: the same on every rank
-        span, m_max = (int(v) for v in span_m.tolist())
-        ok = span <= max_hops and m_max <= C
-    trace.append("counts" if ok else "ring")
-    new_occ = counts_path(loc) if ok else full_ring(occ)
-    return new_states, new_log_w, new_occ, new_old_loglik
+    ex.update(plans=plans, cidx=cidx, loc=occ_gather(occ, local_idx))
+    static = _static_path(exchange, S, max_hops, capacity, p_local)
+    return ex, None if static is not None else span_m
 
 
-def _draw_noise(num_objects, p_local, local_gen, shared_gen, dev):
-    """Per-block noise from the generators: e1, e2 rank-local, u shared
-    (one draw per block on every rank)."""
-    out = []
-    for _ in range(num_objects):
-        e1 = torch.randn((p_local, 6), generator=local_gen, device=dev)
-        e2 = torch.randn((p_local, 6), generator=local_gen, device=dev)
-        u = torch.rand((), generator=shared_gen, device=dev)
-        out.append(BlockNoise(e1=e1, e2=e2, u=u))
-    return out
+def _exchange(path, occ, ex, *, comm, max_hops, capacity, hooks):
+    """The occlusion leaf after a block's resampling by exchange ``path``
+    (:func:`_choose_path`) from what :func:`_resample_prepare` left in
+    ``ex``; ``occ`` is the block's (committed) leaf."""
+    occ_gather, occ_where, occ_concat, occ_stride = hooks
+    if path == "local":
+        return occ_gather(occ, ex["local_idx"])
+    if path == "none":
+        return occ
+    idx, S = comm.rank, comm.size
+    parents, owner = ex["parents"], ex["owner"]
+    p_local = parents.shape[0]
+
+    def ppermute(x, pairs):
+        return _tree_map(lambda leaf: comm.ppermute(leaf, pairs), x)
+
+    def pluck(out, blk, src):
+        """Copy the rows of ``parents`` owned by rank ``src`` from blk."""
+        src_idx = torch.clamp(parents - src * p_local, 0, p_local - 1)
+        mask = (parents >= src * p_local) & (parents < (src + 1) * p_local)
+        return occ_where(mask, occ_gather(blk, src_idx), out)
+
+    if path == "ring":
+        # at round r this rank holds rank (idx + r) % S's block, copies
+        # the rows it owns, and passes the block along the ring
+        ring = [(i, (i - 1) % S) for i in range(S)]
+        held = occ
+        out = _tree_map(torch.zeros_like, occ)
+        for r in range(S):
+            out = pluck(out, held, (idx + r) % S)
+            if r < S - 1:
+                held = ppermute(held, ring)
+        return out
+    if path == "all_gather":
+        stride = occ_stride(p_local)
+        occ_all = _tree_map(comm.all_gather, occ)           # (S, ...)
+        blocks = [_tree_map(lambda x, s=s: x[s], occ_all) for s in range(S)]
+        combined = occ_concat(blocks, p_local)
+        gidx = owner * stride + (parents - owner * p_local)
+        return occ_gather(combined, gidx, num_in=S * stride)
+    if path == "neighbor":
+        out = _tree_map(torch.zeros_like, occ)
+        out = pluck(out, occ, idx)
+        for h in range(1, max_hops + 1):
+            for s in (h, -h):
+                # blk on rank i is rank (i + s) mod S's block
+                blk = ppermute(occ, [((i + s) % S, i) for i in range(S)])
+                out = pluck(out, blk, (idx + s) % S)
+        return out
+    # counts
+    C = counts_capacity(p_local, capacity)
+    hops = _count_hops(max_hops, S)
+    bufs = []
+    for s, rows in zip(hops, ex["plans"]):
+        buf = occ_gather(occ, rows, num_in=occ_stride(p_local))
+        bufs.append(ppermute(buf, [(i, (i + s) % S) for i in range(S)]))
+    combined = occ_concat(bufs, C)
+    remote = occ_gather(combined, ex["cidx"],
+                        num_in=occ_stride(C) * len(hops))
+    return occ_where(owner != idx, remote, ex["loc"])
+
+
+def _fill_noise(noise, e_gen, u_gen):
+    """Fill per-block :class:`BlockNoise` buffers in place: ``e1``, ``e2``
+    from ``e_gen``, ``u`` from ``u_gen``, block after block."""
+    for nb in noise:
+        nb.e1.normal_(generator=e_gen)
+        nb.e2.normal_(generator=e_gen)
+        nb.u.uniform_(generator=u_gen)
+    return noise
+
+
+def _draw_noise(num_objects, p_local, e_gen, u_gen, dev):
+    """Per-block noise from the generators (the plain step's)."""
+    return _fill_noise([BlockNoise(
+        torch.empty((p_local, 6), device=dev),
+        torch.empty((p_local, 6), device=dev), torch.empty((), device=dev))
+        for _ in range(num_objects)], e_gen, u_gen)
+
+
+def _program_noise(prog, belief, noise, gens):
+    """The step's block noise in ``prog``'s buffers: the caller's
+    ``noise`` copied in, else drawn from ``gens()`` (the e and u
+    generators) outside the graphs, in the plain step's order."""
+    if noise is not None:
+        return prog.keep("noise", [BlockNoise(*(
+            torch.as_tensor(x, dtype=torch.float32)
+            for x in (nb.e1, nb.e2, nb.u))) for nb in noise])
+    L = belief.num_particles
+    return _fill_noise([BlockNoise(
+        prog.buffer(f"noise.{b}.e1", (L, 6)),
+        prog.buffer(f"noise.{b}.e2", (L, 6)), prog.buffer(f"noise.{b}.u", ()))
+        for b in range(belief.num_objects)], *gens())
 
 
 def _generators(seed: int, stream: int, rank: int, dev):
@@ -421,47 +490,140 @@ def _generators(seed: int, stream: int, rank: int, dev):
     return local, shared
 
 
-def _make_step_local(loglik_fn, trans_params, dt, max_kl_divergence,
-                     exchange, max_hops, capacity):
-    """One scene's step body on one rank: (comm, states, log_w, occ,
-    z_obs, noise) → (states, log_w, occ, mean_state (K, 13), ess). Shared
-    by the particle step and the multi-scene step."""
-    if exchange not in EXCHANGES:
-        raise ValueError(f"unknown exchange mode: {exchange!r}")
-    hooks = _occ_hooks(loglik_fn)
+def resolve_capture(comm, capture=None) -> bool:
+    """A step's capture policy over ``comm``: None means when its
+    collectives can be captured (NCCL, :attr:`comm.Comm.capturable`), so a
+    step over gloo is eager; ``True`` over gloo raises. A CPU device with
+    ``True`` raises where the step's program is made."""
+    if capture is None:
+        return comm.capturable
+    if capture and not comm.capturable:
+        raise ValueError(
+            f"capture=True needs an NCCL group, this one is "
+            f"{comm.backend!r}: its collectives stage CUDA tensors through "
+            "host memory, which a CUDA graph cannot hold")
+    return bool(capture)
 
-    def step_one(comm, states, log_w, occ, z_obs, noise, trace):
-        num_objects = states.shape[1]
-        old_loglik = torch.zeros_like(log_w)
-        for b in range(num_objects):
-            nb = noise[b]
-            new_block = sample_transition(states[:, b], dt, trans_params,
-                                          e1=nb.e1, e2=nb.e2)
-            states = states.clone()
-            states[:, b] = new_block
-            commit = b == num_objects - 1
-            loglik, occ_post = loglik_fn(states, occ, z_obs, dt,
-                                         commit=commit)
-            if commit:
-                occ = occ_post
-            log_w = log_w + loglik - old_loglik
-            old_loglik = loglik
 
-            lse, _, kl = _global_log_normalizers(log_w, comm)
-            u = torch.as_tensor(nb.u, dtype=torch.float32,
-                                device=log_w.device)
-            states, log_w, occ, old_loglik = _resample_block(
-                states, log_w, occ, old_loglik,
-                do=kl > max_kl_divergence, ln=log_w - lse, u=u, comm=comm,
-                exchange=exchange, max_hops=max_hops, capacity=capacity,
-                hooks=hooks, trace=trace)
+class _SceneBody:
+    """One scene's step on one rank (the reference's ``step_one``), in the
+    pieces between its host reads. :meth:`plain` runs them eagerly with
+    the reads inline; :meth:`run` runs them as a step program's graphs,
+    keyed by what the host read between them."""
 
+    def __init__(self, loglik_fn, trans_params, dt, max_kl_divergence,
+                 exchange, max_hops, capacity):
+        if exchange not in EXCHANGES:
+            raise ValueError(f"unknown exchange mode: {exchange!r}")
+        self.sensor = loglik_fn
+        self.trans_params = trans_params
+        self.dt = dt
+        self.max_kl = max_kl_divergence
+        self.exchange, self.max_hops, self.capacity = (exchange, max_hops,
+                                                        capacity)
+        self.hooks = _occ_hooks(loglik_fn)
+
+    def _weigh(self, comm, states, log_w, occ, old_loglik, loglik, u):
+        """After a block's sensor call: the weight update, the global
+        normalizers and the resampling up to its host read → (ex, read)."""
+        log_w = log_w + loglik - old_loglik
+        lse, _, kl = _global_log_normalizers(log_w, comm)
+        return _resample_prepare(
+            states, log_w, occ, loglik, do=kl > self.max_kl, ln=log_w - lse,
+            u=u, comm=comm, exchange=self.exchange, max_hops=self.max_hops,
+            capacity=self.capacity, hooks=self.hooks)
+
+    def _path(self, comm, p_local, read):
+        return _choose_path(self.exchange, comm.size, self.max_hops,
+                            self.capacity, p_local, read)
+
+    def _exchange(self, comm, path, occ, ex):
+        return _exchange(path, occ, ex, comm=comm, max_hops=self.max_hops,
+                         capacity=self.capacity, hooks=self.hooks)
+
+    @staticmethod
+    def _summary(comm, states, log_w):
         lse2, s2, _ = _global_log_normalizers(log_w, comm)
         w = torch.exp(log_w - lse2)
-        mean_state = _psum_mean_state(states, w, comm)
-        return states, log_w, occ, mean_state, 1.0 / s2
+        return _psum_mean_state(states, w, comm), 1.0 / s2
 
-    return step_one
+    def plain(self, comm, belief, z_obs, noise, trace):
+        """The step without a program → (belief, mean_state, ess); the
+        path of each block is appended to ``trace``."""
+        states, log_w, occ = belief.states, belief.log_weights, \
+            belief.occlusion
+        old_loglik = torch.zeros_like(log_w)
+        num_objects = belief.num_objects
+        for b in range(num_objects):
+            nb = noise[b]
+            states = rbcpf.propose_block(states, b, self.dt,
+                                         self.trans_params, nb)
+            commit = b == num_objects - 1
+            loglik, occ_post = self.sensor(states, occ, z_obs, self.dt,
+                                           commit=commit)
+            if commit:
+                occ = occ_post
+            u = torch.as_tensor(nb.u, dtype=torch.float32,
+                                device=log_w.device)
+            ex, read = self._weigh(comm, states, log_w, occ, old_loglik,
+                                   loglik, u)
+            path = self._path(comm, belief.num_particles, read)
+            trace.append(path)
+            occ = self._exchange(comm, path, occ, ex)
+            states, log_w, old_loglik = (ex["states"], ex["log_w"],
+                                         ex["old_loglik"])
+        mean_state, ess = self._summary(comm, states, log_w)
+        return ParticleBelief(states, log_w, occ), mean_state, ess
+
+    def run(self, prog, comm, belief, z_obs, noise, trace):
+        """The step through ``prog``: per block the sensor's graphs
+        (``rbcpf.program_block``), whose last holds the resampling up to its
+        read; where a read picks the exchange, an ``("exchange", b,
+        path)`` graph after it. Returns (belief, mean_state, ess), all of
+        them ``prog``'s buffers; ``noise`` is in its buffers."""
+        bel = prog.keep("belief", belief)
+        z = prog.keep("z", z_obs)
+        dt = prog.scalar("dt", self.dt)
+        num_objects = bel.num_objects
+        static = _static_path(self.exchange, comm.size, self.max_hops,
+                              self.capacity, bel.num_particles)
+        for b in range(num_objects):
+            last = b == num_objects - 1
+
+            def finish(path, ex, last=last):
+                new = prog.keep("belief", ParticleBelief(
+                    ex["states"], ex["log_w"],
+                    self._exchange(comm, path, bel.occlusion, ex)))
+                if last:
+                    return prog.keep("out", self._summary(
+                        comm, new.states, new.log_weights))
+                prog.keep("carry", ex["old_loglik"])
+                return None
+
+            def rest(states, plan, b=b, last=last):
+                loglik, occ_post = rbcpf.sense(self.sensor, plan, states,
+                                               bel.occlusion, z, dt, last)
+                occ = (prog.keep("belief.occlusion", occ_post) if last
+                       else bel.occlusion)
+                old = (prog["carry"] if b
+                       else torch.zeros_like(bel.log_weights))
+                ex, read = self._weigh(comm, states, bel.log_weights, occ,
+                                       old, loglik, noise[b].u)
+                if static is not None:
+                    return finish(static, ex)
+                return prog.keep("ex", ex), prog.keep("read", read)
+
+            out = rbcpf.program_block(prog, self.sensor, b, bel, z, dt,
+                                      self.trans_params, noise[b], rest)
+            if static is not None:
+                trace.append(static)
+                continue
+            ex, read = out
+            path = self._path(comm, bel.num_particles, read)
+            trace.append(path)
+            prog.run(("exchange", b, path),
+                     lambda path=path, ex=ex: finish(path, ex))
+        return dataclasses.replace(bel), prog["out.0"], prog["out.1"]
 
 
 class DistributedStep:
@@ -470,41 +632,61 @@ class DistributedStep:
     ``noise`` is one :class:`BlockNoise` per object with this rank's
     ``e1``/``e2`` (L, 6) and the shared ``u``; without it they come from
     ``generator`` (rank-local) and ``shared_generator``. ``paths`` holds
-    the exchange path each block of the last call took."""
+    the exchange path each block of the last call took.
 
-    def __init__(self, comm, body, seed):
+    The step runs through its step program (``program``, made at the
+    first call on the belief's device; ``capture`` says whether its
+    graphs are captured, see :func:`resolve_capture`). **The belief is
+    donated**: the returned belief is the program's buffers, which the
+    next call overwrites (``ParticleBelief.clone()`` keeps a copy); a
+    belief from elsewhere is copied in. :meth:`plain` is the same step
+    without a program, the reference the programmed step is held to."""
+
+    def __init__(self, comm, body, seed, capture=None):
         self.comm = comm
         self._body = body
         self.seed = seed
+        self.capture = resolve_capture(comm, capture)
         self.generator = self.shared_generator = None
+        self.program = None
         self.paths = []
 
-    def _ensure_generators(self, dev):
+    def _generators(self, dev):
         if self.generator is None:
             self.generator, self.shared_generator = _generators(
                 self.seed, 0, self.comm.rank, dev)
+        return self.generator, self.shared_generator
 
     def __call__(self, belief: ParticleBelief, z_obs,
                  noise: Optional[Sequence[BlockNoise]] = None):
+        dev = belief.log_weights.device
+        if self.program is None:
+            self.program = graphs.StepProgram(dev, self.capture,
+                                              counters=self.comm.counters())
+        noise = _program_noise(self.program, belief, noise,
+                               lambda: self._generators(dev))
+        self.paths = []
+        return self._body.run(self.program, self.comm, belief, z_obs, noise,
+                              self.paths)
+
+    def plain(self, belief: ParticleBelief, z_obs,
+              noise: Optional[Sequence[BlockNoise]] = None):
+        """The step without a program: the same pieces run eagerly with
+        their host reads inline (draws from the same generators)."""
         if noise is None:
             dev = belief.log_weights.device
-            self._ensure_generators(dev)
             noise = _draw_noise(belief.num_objects, belief.num_particles,
-                                self.generator, self.shared_generator, dev)
+                                *self._generators(dev), dev)
         self.paths = []
-        states, log_w, occ, mean_state, ess = self._body(
-            self.comm, belief.states, belief.log_weights, belief.occlusion,
-            z_obs, noise, self.paths)
-        return (ParticleBelief(states=states, log_weights=log_w,
-                               occlusion=occ), mean_state, ess)
+        return self._body.plain(self.comm, belief, z_obs, noise, self.paths)
 
 
 def make_distributed_step(comm, loglik_fn: Callable,
                           trans_params: TransitionParams, dt: float,
                           max_kl_divergence: float = 1.0,
                           exchange: str = "counts", max_hops: int = 1,
-                          capacity: int = None,
-                          seed: int = 0) -> DistributedStep:
+                          capacity: int = None, seed: int = 0,
+                          capture=None) -> DistributedStep:
     """The distributed RBC-PF step over ``comm``'s ranks (K objects per
     scene): the reference's sequential coordinate blocks with per-block
     KL-triggered global resampling, the semantics of ``rbcpf_step``.
@@ -525,11 +707,13 @@ def make_distributed_step(comm, loglik_fn: Callable,
 
     ``capacity`` (counts) defaults to ``max(128, L/8)``, rounded up to a
     multiple of 128. On one rank every mode is the lineage gather. Parent
-    states always travel by all-gather.
+    states always travel by all-gather. ``capture``: see
+    :func:`resolve_capture` (the counterpart of the reference's
+    ``jax.jit`` with the belief donated).
     """
-    body = _make_step_local(loglik_fn, trans_params, dt, max_kl_divergence,
-                            exchange, max_hops, capacity)
-    return DistributedStep(comm, body, seed)
+    body = _SceneBody(loglik_fn, trans_params, dt, max_kl_divergence,
+                      exchange, max_hops, capacity)
+    return DistributedStep(comm, body, seed, capture)
 
 
 # ---------------------------------------------------------------------------
@@ -574,36 +758,64 @@ class MultiSceneStep:
     (S_local, K, 13), ess (S_local,))`` over this rank's scenes: one
     belief and one frame ``z_obs[s]`` per local scene, ``noise[s]`` one
     list of :class:`BlockNoise` per scene (else each scene draws from its
-    own pair of generators)."""
+    own pair of generators). Each local scene runs through its own step
+    program (``programs``), all of them on one capture stream and memory
+    pool; the beliefs are donated, as in :class:`DistributedStep`."""
 
-    def __init__(self, groups, body, seed):
+    def __init__(self, groups, body, seed, capture=None):
         self.groups = groups
         self._body = body
         self.seed = seed
+        self.capture = resolve_capture(groups.particles, capture)
         self._gens = None
+        self.programs = []
         self.paths = []
+
+    def _generators(self, n, dev):
+        if self._gens is None:
+            first = self.groups.scene_index * n
+            self._gens = [_generators(self.seed, first + s + 1,
+                                      self.groups.particles.rank, dev)
+                          for s in range(n)]
+        return self._gens
 
     def __call__(self, beliefs, z_obs, noise=None):
         comm = self.groups.particles
-        first = (self.groups.scene_index * len(beliefs))
-        if noise is None:
-            dev = beliefs[0].log_weights.device
-            if self._gens is None:
-                self._gens = [_generators(self.seed, first + s + 1,
-                                          comm.rank, dev)
-                              for s in range(len(beliefs))]
-            noise = [_draw_noise(b.num_objects, b.num_particles, g[0], g[1],
-                                 dev) for b, g in zip(beliefs, self._gens)]
+        dev = beliefs[0].log_weights.device
+        gens = self._generators(len(beliefs), dev)
+        while len(self.programs) < len(beliefs):
+            self.programs.append(graphs.StepProgram(
+                dev, self.capture, counters=comm.counters(),
+                share=self.programs[0] if self.programs else None))
         out, means, ess = [], [], []
         self.paths = []
         # scenes carry no collectives: a rank steps its scenes in turn,
         # each over its particle subgroup
         for s, belief in enumerate(beliefs):
-            st, lw, occ, ms, e = self._body(
-                comm, belief.states, belief.log_weights, belief.occlusion,
-                z_obs[s], noise[s], self.paths)
-            out.append(ParticleBelief(states=st, log_weights=lw,
-                                      occlusion=occ))
+            prog = self.programs[s]
+            nz = _program_noise(prog, belief,
+                                None if noise is None else noise[s],
+                                lambda s=s: gens[s])
+            b, ms, e = self._body.run(prog, comm, belief, z_obs[s], nz,
+                                      self.paths)
+            out.append(b)
+            means.append(ms)
+            ess.append(e)
+        return out, torch.stack(means), torch.stack(ess)
+
+    def plain(self, beliefs, z_obs, noise=None):
+        """The step without programs (see :meth:`DistributedStep.plain`)."""
+        comm = self.groups.particles
+        dev = beliefs[0].log_weights.device
+        gens = self._generators(len(beliefs), dev)
+        out, means, ess = [], [], []
+        self.paths = []
+        for s, belief in enumerate(beliefs):
+            nz = (noise[s] if noise is not None else _draw_noise(
+                belief.num_objects, belief.num_particles, *gens[s], dev))
+            b, ms, e = self._body.plain(comm, belief, z_obs[s], nz,
+                                        self.paths)
+            out.append(b)
             means.append(ms)
             ess.append(e)
         return out, torch.stack(means), torch.stack(ess)
@@ -613,21 +825,187 @@ def make_multi_scene_step(groups: SceneGroups, loglik_fn: Callable,
                           trans_params: TransitionParams, dt: float,
                           max_kl_divergence: float = 1.0,
                           exchange: str = "counts", max_hops: int = 1,
-                          capacity: int = None,
-                          seed: int = 0) -> MultiSceneStep:
+                          capacity: int = None, seed: int = 0,
+                          capture=None) -> MultiSceneStep:
     """Independent scenes over ``make_scene_groups``' layout: each scene
     runs the distributed step of :func:`make_distributed_step` over its
     particle subgroup; the scene axis carries no collectives.
     ``torch.func.vmap`` cannot batch the fused sensor (its kernels are
-    ctypes calls on raw pointers), so a rank loops over its scenes."""
-    body = _make_step_local(loglik_fn, trans_params, dt, max_kl_divergence,
-                            exchange, max_hops, capacity)
-    return MultiSceneStep(groups, body, seed)
+    ctypes calls on raw pointers), so a rank loops over its scenes, where
+    the reference runs one ``jit(vmap)``."""
+    body = _SceneBody(loglik_fn, trans_params, dt, max_kl_divergence,
+                      exchange, max_hops, capacity)
+    return MultiSceneStep(groups, body, seed, capture)
 
 
 # ---------------------------------------------------------------------------
 # Island model: no per-particle exchange on the common path
 # ---------------------------------------------------------------------------
+
+class _IslandBody:
+    """The island step on one rank, in the pieces between its host reads
+    (the ladder's in each block, the island trigger after the last):
+    :meth:`plain` eagerly, :meth:`run` through a step program."""
+
+    def __init__(self, loglik_fn, trans_params, dt, max_kl_divergence,
+                 island_max_kl):
+        self.sensor = loglik_fn
+        self.trans_params = trans_params
+        self.dt = dt
+        self.max_kl = max_kl_divergence
+        self.island_max_kl = island_max_kl
+        self.gather = _occ_hooks(loglik_fn)[0]
+
+    def _local(self, states, occ, old_loglik, ln_local, b_acc, loglik, u):
+        """After a block's sensor call: the island decomposition and the
+        local KL-triggered resampling → (states, occ, old_loglik,
+        ln_local, b_acc)."""
+        p_local = states.shape[0]
+        dev = loglik.device
+        log_p = math.log(float(p_local))
+        ar = torch.arange(p_local, dtype=torch.float32, device=dev)
+        ar_i = torch.arange(p_local, device=dev)
+        ln_local = ln_local + loglik - old_loglik
+        old_loglik = loglik
+        # island decomposition: b = local logsumexp, ln sums to 1
+        m_loc = torch.max(ln_local)
+        b = m_loc + torch.log(torch.sum(torch.exp(ln_local - m_loc)))
+        b_acc = b_acc + b
+        ln_local = ln_local - b
+        w_loc = torch.exp(ln_local)
+        kl_local = (torch.sum(w_loc * torch.where(w_loc > 0, ln_local, 0.0))
+                    + log_p)
+        # the trigger is island-local and touches no collective: a
+        # where-select, no host read
+        do_l = kl_local > self.max_kl
+        p_rs = torch.clamp(torch.searchsorted(
+            torch.cumsum(w_loc, 0), (ar + u) / p_local, side="left"),
+            0, p_local - 1)
+        parents = torch.where(do_l, p_rs, ar_i)
+        return (states.index_select(0, parents), self.gather(occ, parents),
+                old_loglik.index_select(0, parents),
+                torch.where(do_l, torch.full_like(ln_local, -log_p),
+                            ln_local), b_acc)
+
+    def _islands(self, comm, b_acc):
+        """Island bookkeeping (scalar collectives only) → (the normalized
+        island log weight, whether the island weights degenerated)."""
+        m_b = comm.all_reduce(b_acc, "max")
+        sum_b = comm.all_reduce(torch.exp(b_acc - m_b))
+        bn = b_acc - (m_b + torch.log(sum_b))
+        w_isl = torch.exp(bn)
+        kl_islands = (comm.all_reduce(w_isl * torch.where(w_isl > 0, bn,
+                                                          0.0))
+                      + math.log(float(comm.size)))
+        return bn, kl_islands > self.island_max_kl
+
+    @staticmethod
+    def _finish(comm, states, occ, ln_local, bn, island_u, exchange):
+        """The island resampling when ``exchange`` (read from the island
+        trigger: the same on every rank), the mean and ESS → (states,
+        log_w, occ, mean_state, ess)."""
+        idx, n_islands = comm.rank, comm.size
+        if exchange:
+            bn_all = comm.all_gather(bn)                         # (S,)
+            cdf = torch.cumsum(torch.exp(bn_all), 0)
+            pos = ((torch.full((), float(idx), device=bn.device)
+                    + island_u) / n_islands)
+            src = torch.clamp(torch.searchsorted(cdf, pos[None],
+                                                 side="left"),
+                              0, n_islands - 1)                  # (1,)
+
+            def pick(x):
+                return comm.all_gather(x).index_select(0, src)[0]
+
+            states = pick(states)
+            occ = _tree_map(pick, occ)
+            ln_local = pick(ln_local)
+            bn = torch.full_like(bn, -math.log(float(n_islands)))
+        log_w = bn + ln_local
+        lse2, s2, _ = _global_log_normalizers(log_w, comm)
+        w = torch.exp(log_w - lse2)
+        mean_state = _psum_mean_state(states, w, comm, power_iters=10)
+        return states, log_w, occ, mean_state, 1.0 / s2
+
+    def plain(self, comm, belief, z_obs, noise, island_u, trace):
+        """The step without a program → (belief, mean_state, ess); the
+        island exchange's path (``"islands"`` or ``"none"``) is appended
+        to ``trace``."""
+        states, occ = belief.states, belief.occlusion
+        dev = belief.log_weights.device
+        old_loglik = torch.zeros_like(belief.log_weights)
+        b_acc = torch.zeros((), device=dev)
+        ln_local = belief.log_weights
+        num_objects = belief.num_objects
+        for blk in range(num_objects):
+            nb = noise[blk]
+            states = rbcpf.propose_block(states, blk, self.dt,
+                                         self.trans_params, nb)
+            commit = blk == num_objects - 1
+            loglik, occ_post = self.sensor(states, occ, z_obs, self.dt,
+                                           commit=commit)
+            if commit:
+                occ = occ_post
+            u = torch.as_tensor(nb.u, dtype=torch.float32, device=dev)
+            states, occ, old_loglik, ln_local, b_acc = self._local(
+                states, occ, old_loglik, ln_local, b_acc, loglik, u)
+        bn, do = self._islands(comm, b_acc)
+        do = bool(do)
+        trace.append("islands" if do else "none")
+        states, log_w, occ, mean_state, ess = self._finish(
+            comm, states, occ, ln_local, bn, island_u, do)
+        return ParticleBelief(states, log_w, occ), mean_state, ess
+
+    def run(self, prog, comm, belief, z_obs, noise, island_u, trace):
+        """The step through ``prog``: per block the sensor's graphs, the
+        last of them with the island bookkeeping up to its trigger; the
+        trigger's host read; a ``("finish", do)`` graph. Returns (belief,
+        mean_state, ess), all ``prog``'s buffers; ``noise`` and
+        ``island_u`` are in its buffers."""
+        bel = prog.keep("belief", belief)
+        z = prog.keep("z", z_obs)
+        dt = prog.scalar("dt", self.dt)
+        num_objects = bel.num_objects
+        for blk in range(num_objects):
+            last = blk == num_objects - 1
+
+            def rest(states, plan, blk=blk, last=last):
+                loglik, occ_post = rbcpf.sense(self.sensor, plan, states,
+                                               bel.occlusion, z, dt, last)
+                occ = occ_post if last else bel.occlusion
+                if blk:
+                    c = (prog["carry.old_loglik"], prog["carry.ln_local"],
+                         prog["carry.b_acc"])
+                else:
+                    c = (torch.zeros_like(bel.log_weights), bel.log_weights,
+                         torch.zeros((), device=bel.log_weights.device))
+                states, occ, old, ln_local, b_acc = self._local(
+                    states, occ, *c, loglik, noise[blk].u)
+                prog.keep("belief.states", states)
+                prog.keep("belief.occlusion", occ)
+                prog.keep("carry", {"old_loglik": old, "ln_local": ln_local,
+                                    "b_acc": b_acc})
+                if not last:
+                    return None
+                bn, do = self._islands(comm, b_acc)
+                prog.keep("bn", bn)
+                return prog.keep("read", do)
+
+            read = rbcpf.program_block(prog, self.sensor, blk, bel, z, dt,
+                                       self.trans_params, noise[blk], rest)
+        do = bool(read)
+        trace.append("islands" if do else "none")
+
+        def finish():
+            states, log_w, occ, mean_state, ess = self._finish(
+                comm, bel.states, bel.occlusion, prog["carry.ln_local"],
+                prog["bn"], island_u, do)
+            prog.keep("belief", ParticleBelief(states, log_w, occ))
+            return prog.keep("out", (mean_state, ess))
+
+        mean_state, ess = prog.run(("finish", do), finish)
+        return dataclasses.replace(bel), mean_state, ess
+
 
 class IslandStep:
     """``step(belief, z_obs, noise=None, island_u=None) → (belief,
@@ -635,38 +1013,65 @@ class IslandStep:
     ``e2`` and its own local resampling ``u``; ``island_u`` the shared
     uniform of the island resampling. Without them: ``e1``, ``e2``, ``u``
     from the rank-local generator, ``island_u`` from the shared one (one
-    draw a step on every rank)."""
+    draw a step on every rank). A step program runs it and the belief is
+    donated, as in :class:`DistributedStep` (``plain``: without the
+    program). ``paths`` holds ``["islands"]`` after a step that exchanged
+    whole blocks, else ``["none"]``."""
 
-    def __init__(self, comm, body, seed):
+    def __init__(self, comm, body, seed, capture=None):
         self.comm = comm
         self._body = body
         self.seed = seed
+        self.capture = resolve_capture(comm, capture)
         self.generator = self.shared_generator = None
+        self.program = None
+        self.paths = []
+
+    def _generators(self, dev):
+        if self.generator is None:
+            self.generator, self.shared_generator = _generators(
+                self.seed, 0, self.comm.rank, dev)
+        return self.generator, self.shared_generator
 
     def __call__(self, belief, z_obs, noise=None, island_u=None):
         dev = belief.log_weights.device
-        if noise is None or island_u is None:
-            if self.generator is None:
-                self.generator, self.shared_generator = _generators(
-                    self.seed, 0, self.comm.rank, dev)
+        if self.program is None:
+            self.program = graphs.StepProgram(dev, self.capture,
+                                              counters=self.comm.counters())
+        prog = self.program
+        noise = _program_noise(prog, belief, noise,
+                               lambda: (self._generators(dev)[0],) * 2)
+        if island_u is None:
+            island_u = prog.buffer("island_u", ()).uniform_(
+                generator=self._generators(dev)[1])
+        else:
+            island_u = prog.keep("island_u", torch.as_tensor(
+                island_u, dtype=torch.float32))
+        self.paths = []
+        return self._body.run(prog, self.comm, belief, z_obs, noise,
+                              island_u, self.paths)
+
+    def plain(self, belief, z_obs, noise=None, island_u=None):
+        """The step without a program (see :meth:`DistributedStep.plain`)."""
+        dev = belief.log_weights.device
+        local, shared = self._generators(dev)
         if noise is None:
             noise = _draw_noise(belief.num_objects, belief.num_particles,
-                                self.generator, self.generator, dev)
+                                local, local, dev)
         if island_u is None:
-            island_u = torch.rand((), generator=self.shared_generator,
-                                  device=dev)
-        states, log_w, occ, mean_state, ess = self._body(
-            self.comm, belief.states, belief.log_weights, belief.occlusion,
-            z_obs, noise, torch.as_tensor(island_u, dtype=torch.float32,
-                                          device=dev))
-        return (ParticleBelief(states=states, log_weights=log_w,
-                               occlusion=occ), mean_state, ess)
+            island_u = torch.rand((), generator=shared, device=dev)
+        island_u = torch.as_tensor(island_u, dtype=torch.float32,
+                                   device=dev)
+        self.paths = []
+        return self._body.plain(self.comm, belief, z_obs, noise, island_u,
+                                self.paths)
 
 
 def make_island_step(comm, loglik_fn: Callable,
                      trans_params: TransitionParams, dt: float,
                      max_kl_divergence: float = 1.0,
-                     island_max_kl: float = 0.5, seed: int = 0) -> IslandStep:
+                     island_max_kl: float = 0.5, seed: int = 0,
+                     capture=None) -> IslandStep:
     """Island-model RBC-PF step (Vergé et al.): every rank runs a whole
     local filter with local KL-triggered systematic resampling per block
     (no communication; the occlusion follows through the sensor's
@@ -676,81 +1081,8 @@ def make_island_step(comm, loglik_fn: Callable,
     blocks exchanged, with a shared draw. The posterior mean and ESS
     weight each island's normalized particles by its island weight
     (reduced sums). The returned log weights carry the island offset, so
-    the global weight vector is the full filter's."""
-    occ_gather = _occ_hooks(loglik_fn)[0]
-
-    def body(comm, states, log_w, occ, z_obs, noise, island_u):
-        idx, n_islands = comm.rank, comm.size
-        p_local, num_objects = states.shape[:2]
-        dev = log_w.device
-        log_p = math.log(float(p_local))
-        ar = torch.arange(p_local, dtype=torch.float32, device=dev)
-        ar_i = torch.arange(p_local, device=dev)
-        old_loglik = torch.zeros_like(log_w)
-        b_acc = torch.zeros((), device=dev)
-        ln_local = log_w
-        for blk in range(num_objects):
-            nb = noise[blk]
-            new_block = sample_transition(states[:, blk], dt, trans_params,
-                                          e1=nb.e1, e2=nb.e2)
-            states = states.clone()
-            states[:, blk] = new_block
-            commit = blk == num_objects - 1
-            loglik, occ_post = loglik_fn(states, occ, z_obs, dt,
-                                         commit=commit)
-            if commit:
-                occ = occ_post
-            ln_local = ln_local + loglik - old_loglik
-            old_loglik = loglik
-
-            # island decomposition: b = local logsumexp, ln sums to 1
-            m_loc = torch.max(ln_local)
-            b = m_loc + torch.log(torch.sum(torch.exp(ln_local - m_loc)))
-            b_acc = b_acc + b
-            ln_local = ln_local - b
-            w_loc = torch.exp(ln_local)
-            kl_local = (torch.sum(w_loc * torch.where(w_loc > 0, ln_local,
-                                                      0.0)) + log_p)
-            # the trigger is island-local and touches no collective: a
-            # where-select, no host read
-            do_l = kl_local > max_kl_divergence
-            u = torch.as_tensor(nb.u, dtype=torch.float32, device=dev)
-            p_rs = torch.clamp(torch.searchsorted(
-                torch.cumsum(w_loc, 0), (ar + u) / p_local, side="left"),
-                0, p_local - 1)
-            parents = torch.where(do_l, p_rs, ar_i)
-            states = states.index_select(0, parents)
-            occ = occ_gather(occ, parents)
-            old_loglik = old_loglik.index_select(0, parents)
-            ln_local = torch.where(do_l, torch.full_like(ln_local, -log_p),
-                                   ln_local)
-
-        # island bookkeeping: scalar collectives only
-        m_b = comm.all_reduce(b_acc, "max")
-        sum_b = comm.all_reduce(torch.exp(b_acc - m_b))
-        bn = b_acc - (m_b + torch.log(sum_b))
-        w_isl = torch.exp(bn)
-        kl_islands = (comm.all_reduce(w_isl * torch.where(w_isl > 0, bn,
-                                                          0.0))
-                      + math.log(float(n_islands)))
-        # kl_islands comes from an all-reduce: the same branch everywhere
-        if bool(kl_islands > island_max_kl):
-            bn_all = comm.all_gather(bn)                         # (S,)
-            cdf = torch.cumsum(torch.exp(bn_all), 0)
-            pos = ((torch.tensor(float(idx), device=dev) + island_u)
-                   / n_islands)
-            src = torch.clamp(torch.searchsorted(cdf, pos[None],
-                                                 side="left")[0],
-                              0, n_islands - 1)
-            states = comm.all_gather(states)[src]
-            occ = _tree_map(lambda x: comm.all_gather(x)[src], occ)
-            ln_local = comm.all_gather(ln_local)[src]
-            bn = torch.full_like(bn, -math.log(float(n_islands)))
-
-        log_w_out = bn + ln_local
-        lse2, s2, _ = _global_log_normalizers(log_w_out, comm)
-        w = torch.exp(log_w_out - lse2)
-        mean_state = _psum_mean_state(states, w, comm, power_iters=10)
-        return states, log_w_out, occ, mean_state, 1.0 / s2
-
-    return IslandStep(comm, body, seed)
+    the global weight vector is the full filter's. ``capture``: see
+    :func:`resolve_capture`."""
+    body = _IslandBody(loglik_fn, trans_params, dt, max_kl_divergence,
+                       island_max_kl)
+    return IslandStep(comm, body, seed, capture)

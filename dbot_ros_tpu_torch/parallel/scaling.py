@@ -4,7 +4,9 @@ Port of ``dbot_ros_tpu/parallel/scaling.py``: filter steps per second at
 growing group sizes with the particle budget grown in proportion (more
 ranks, more particles, the same frame rate). Efficiency(n) =
 steps/s(n) / steps/s(1). Ranks that share one card (two gloo ranks on
-one H100) measure the mechanics only, not scaling efficiency.
+one H100) measure the mechanics only, not scaling efficiency. The step
+is timed as users run it: captured under NCCL, eager over gloo
+(``capture``, see ``dist_filter.resolve_capture``).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def _sync(t):
 def run_scaling(sensor, trans_params, camera, initial_pose,
                 particles_per_device: int = 1024, device_counts=None,
                 frames: int = 20, dt: float = 1.0 / 30.0, z_obs=None,
-                timeout_s: float = comm_mod.DEFAULT_TIMEOUT_S
-                ) -> ScalingResult:
+                timeout_s: float = comm_mod.DEFAULT_TIMEOUT_S,
+                capture=None) -> ScalingResult:
     """Sweep over group sizes that divide the world: for each size ``n``
     the first ``n`` ranks step ``particles_per_device · n`` particles
     ``frames`` times after one warm-up step (the rest wait). Every rank
@@ -67,7 +69,8 @@ def run_scaling(sensor, trans_params, camera, initial_pose,
                 group, initial_pose, p, camera.num_pixels, sensor=sensor,
                 device=z_obs.device)
             step = dist_filter.make_distributed_step(
-                group, sensor, trans_params, dt, max_kl_divergence=0.8)
+                group, sensor, trans_params, dt, max_kl_divergence=0.8,
+                capture=capture)
             belief, _, _ = step(belief, z_obs)
             _sync(z_obs)
             t0 = time.perf_counter()

@@ -13,6 +13,13 @@ independent oracle raycaster with Kinect-class artifacts,
 :class:`U16CameraAdapter` puts frames through the uint16 sensor transport
 and the native conversion, and :class:`ThreadedSource` decouples a camera
 thread from the tracking loop through the native drop-oldest frame ring.
+
+As the reference jits both renders, each render here is the one graph of
+its own step program (``utils/graphs.compiled``): captured and replayed
+on the card (``capture`` None or True), eager on the CPU and with
+``capture=False``. The random fields are drawn before the replay, the
+render's inputs are copied into the program's buffers, and a render
+returns a copy of its output buffer.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from dbot_ros_tpu_torch.native import FrameRing, preprocess_depth_u16
 from dbot_ros_tpu_torch.ops.raycast import raycast_depth, raycast_oracle
 from dbot_ros_tpu_torch.trackers.base import to_center_frame
+from dbot_ros_tpu_torch.utils import graphs
 from dbot_ros_tpu_torch.utils.camera import CameraModel, make_camera
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
 
@@ -86,13 +94,14 @@ class SyntheticSource:
 
     ``trajectory_fn(t: int) → (K, 7)`` model-frame poses (host-side).
     Rendering and noise run on the camera's device; frames come out as
-    flat (N,) numpy arrays, as in the reference.
+    flat (N,) numpy arrays, as in the reference. ``capture``: the render's
+    graph (see the module docstring).
     """
 
     def __init__(self, meshes, camera: CameraModel, trajectory_fn,
                  num_frames: int, noise_sigma: float = 0.003,
                  dropout_prob: float = 0.0, background_depth: float = 2.0,
-                 seed: int = 0):
+                 seed: int = 0, capture=None):
         if isinstance(meshes, TriangleMesh):
             meshes = [meshes]
         self.camera = camera
@@ -105,12 +114,27 @@ class SyntheticSource:
         self.background_depth = background_depth
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._render = graphs.compiled(self._render_plain, self.device,
+                                       capture)
 
     def __len__(self):
         return self.num_frames
 
     def render(self, poses_model):
-        """(K, 7) model-frame poses → noisy flat depth (N,) on the device."""
+        """(K, 7) model-frame poses → noisy flat depth (N,) on the device:
+        the noise and the dropout's uniforms drawn from the generator
+        (in that order, each only where used), then the render's graph."""
+        n = self.camera.num_pixels
+        noise = drop = None
+        if self.noise_sigma > 0:
+            noise = torch.randn(n, generator=self.generator,
+                                device=self.device)
+        if self.dropout_prob > 0:
+            drop = torch.rand(n, generator=self.generator,
+                              device=self.device)
+        return self._render(poses_model, noise, drop).clone()
+
+    def _render_plain(self, poses_model, noise, drop):
         depth = None
         for k, mesh in enumerate(self.meshes):
             pc = to_center_frame(poses_model[k], mesh.center)
@@ -118,13 +142,10 @@ class SyntheticSource:
             depth = d if depth is None else torch.minimum(depth, d)
         z = torch.where(torch.isfinite(depth), depth,
                         float(self.background_depth))
-        if self.noise_sigma > 0:
-            z = z + self.noise_sigma * torch.randn(
-                z.shape, generator=self.generator, device=self.device)
-        if self.dropout_prob > 0:
-            drop = torch.rand(z.shape, generator=self.generator,
-                              device=self.device) < self.dropout_prob
-            z = torch.where(drop, float("nan"), z)
+        if noise is not None:
+            z = z + self.noise_sigma * noise
+        if drop is not None:
+            z = torch.where(drop < self.dropout_prob, float("nan"), z)
         return z
 
     def __iter__(self) -> Iterator[Frame]:
@@ -183,7 +204,8 @@ class OracleSource:
     frame's five random fields as :class:`OracleDraws` (the parity tests
     inject the JAX package's), and iteration draws them from a
     ``torch.Generator`` seeded by ``seed``. Frames come out as flat
-    ``(N,)`` numpy arrays on the host.
+    ``(N,)`` numpy arrays on the host. ``capture``: the render's graph
+    (see the module docstring).
     """
 
     def __init__(self, meshes, camera: CameraModel, trajectory_fn,
@@ -192,7 +214,7 @@ class OracleSource:
                  occluder: TriangleMesh = None, occluder_fn=None,
                  dropout_prob: float = 0.0, dropout_frames=None,
                  edge_artifacts: float = 0.0, edge_threshold: float = 0.03,
-                 quantize_mm: bool = False):
+                 quantize_mm: bool = False, capture=None):
         if isinstance(meshes, TriangleMesh):
             meshes = [meshes]
         self.camera = camera
@@ -212,6 +234,8 @@ class OracleSource:
         self.quantize_mm = quantize_mm
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._render = graphs.compiled(self._render_plain, self.device,
+                                       capture)
 
     def __len__(self):
         return self.num_frames
@@ -230,7 +254,12 @@ class OracleSource:
 
     def render(self, poses_model, occ_pose, p_drop: float,
                draws: OracleDraws):
-        """(K, 7) model-frame poses → flat depth (N,) on the device."""
+        """(K, 7) model-frame poses → flat depth (N,) on the device,
+        through the render's graph (``p_drop`` becomes a 0-d tensor)."""
+        p_drop = torch.full((), float(p_drop), device=self.device)
+        return self._render(poses_model, occ_pose, p_drop, draws).clone()
+
+    def _render_plain(self, poses_model, occ_pose, p_drop, draws):
         cam = self.camera
         depth = None
         for k, mesh in enumerate(self.meshes):

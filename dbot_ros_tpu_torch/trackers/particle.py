@@ -295,29 +295,18 @@ class ParticleTracker:
         return dataclasses.replace(bel), info
 
     def _block(self, prog, b, bel, z, dt, nb):
-        """Coordinate block ``b`` of a step: with the fused sensor, one
-        graph for the proposal and the sensor's work before its host read,
-        the read (the level), and the level's graph for the rest; with
-        another sensor one graph. The belief's buffers are updated in
-        place; after the last block the step's StepInfo is returned."""
+        """Coordinate block ``b`` of a step (``rbcpf.program_block``): with
+        the fused sensor, one graph for the proposal and the sensor's work
+        before its host read, the read (the level), and the level's graph
+        for the rest; with another sensor one graph. The belief's buffers
+        are updated in place; after the last block the step's StepInfo is
+        returned."""
         sensor = self.sensor
         last = b == bel.num_objects - 1
-        split = hasattr(sensor, "plan_device")
-
-        def propose():
-            states = prog.keep("belief.states", rbcpf.propose_block(
-                bel.states, b, dt, self.trans_params, nb))
-            plan = (prog.keep("plan", sensor.plan_device(states, z, dt))
-                    if split else None)
-            return states, plan
 
         def rest(states, plan):
-            if plan is None:
-                loglik, occ_post = sensor(states, bel.occlusion, z, dt,
-                                          commit=last)
-            else:
-                loglik, occ_post = sensor.apply(plan, states, bel.occlusion,
-                                                z, commit=last)
+            loglik, occ_post = rbcpf.sense(sensor, plan, states,
+                                           bel.occlusion, z, dt, last)
             if b == 0:
                 old = torch.zeros_like(bel.log_weights)
                 res = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -334,11 +323,8 @@ class ParticleTracker:
             prog.keep("carry", {"old_loglik": old, "resampled": res})
             return None
 
-        if not split:
-            return prog.run(("block", b), lambda: rest(*propose()))
-        states, plan = prog.run(("propose", b), propose)
-        plan = sensor.choose_level(plan)
-        return prog.run(("rest", b, plan.level), lambda: rest(states, plan))
+        return rbcpf.program_block(prog, sensor, b, bel, z, dt,
+                                   self.trans_params, nb, rest)
 
     def track(self, depth_image, dt=None):
         """One frame → (poses (K, 7) in the model frame, StepInfo).

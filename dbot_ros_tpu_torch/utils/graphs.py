@@ -18,8 +18,10 @@ counterpart. It owns
   added to the card's reserved memory). The stream is shared with the
   pool because the caching allocator reuses a freed block only on the
   stream that freed it;
-* **the launch counts** of the port's kernel wrappers
-  (``ops/kernels.py``). A replay runs no Python, so the program records
+* **the counters**: the launch counts of the port's kernel wrappers
+  (``ops/kernels.py``, ``COUNTERS``) and whatever a program is given
+  (``counters``: ``(object, attribute or key)``, such as a collective
+  group's bytes sent). A replay runs no Python, so the program records
   each counter's change during a capture, takes it back (the capture
   launched nothing), and adds it on every replay.
 
@@ -33,6 +35,9 @@ Without capture (the CPU, and ``capture=False`` on the card: the
 counterpart of ``jax.disable_jit``) the same functions run eagerly through
 the same buffers. ``capture=True`` on the CPU raises, and so does a
 capture that fails: there is no quiet fallback to the eager step.
+
+:func:`compiled` is the counterpart of ``jax.jit`` at a call site: one
+function as the one graph of a program of its own.
 """
 
 from __future__ import annotations
@@ -65,8 +70,15 @@ def resolve_capture(device, capture=None) -> bool:
     return bool(capture)
 
 
-def _counts():
-    return [getattr(w, a) for w, a in COUNTERS]
+def _get(obj, key):
+    return obj[key] if isinstance(obj, dict) else getattr(obj, key)
+
+
+def _set(obj, key, value):
+    if isinstance(obj, dict):
+        obj[key] = value
+    else:
+        setattr(obj, key, value)
 
 
 @dataclasses.dataclass
@@ -80,14 +92,17 @@ class StepProgram:
     """Static buffers and the graphs of one step (see the module
     docstring). ``capture`` None means: on a CUDA ``device``. ``share``
     is another program whose capture stream and memory pool this one
-    uses (its buffers stay its own)."""
+    uses (its buffers stay its own). ``counters``: ``(object, attribute
+    or key)`` pairs carried over replays beside the kernels' ``COUNTERS``
+    (a dict's key, else an attribute)."""
 
     def __init__(self, device, capture=None,
-                 share: Optional["StepProgram"] = None):
+                 share: Optional["StepProgram"] = None, counters=()):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.capture = resolve_capture(self.device, capture)
+        self.counters = tuple(COUNTERS) + tuple(counters)
         self._buffers: Dict[str, torch.Tensor] = {}
         self._graphs: Dict[Hashable, _Captured] = {}
         self._capturing = False
@@ -191,10 +206,13 @@ class StepProgram:
         if done is None:
             return self._first_call(key, fn)
         done.graph.replay()
-        for (w, attr), d in zip(COUNTERS, done.deltas):
+        for (obj, name), d in zip(self.counters, done.deltas):
             if d:
-                setattr(w, attr, getattr(w, attr) + d)
+                _set(obj, name, _get(obj, name) + d)
         return done.outputs
+
+    def _counts(self):
+        return [_get(obj, name) for obj, name in self.counters]
 
     def _first_call(self, key, fn):
         home = torch.cuda.current_stream(self.device)
@@ -209,7 +227,7 @@ class StepProgram:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before = _counts()
+        before = self._counts()
         graph = torch.cuda.CUDAGraph()
         self._capturing = True
         try:
@@ -221,9 +239,9 @@ class StepProgram:
                                f"on {self.device}: {e}") from e
         finally:
             self._capturing = False
-            after = _counts()
-            for (w, attr), v in zip(COUNTERS, before):
-                setattr(w, attr, v)
+            after = self._counts()
+            for (obj, name), v in zip(self.counters, before):
+                _set(obj, name, v)
         self._check_kept(key, captured)
         torch.cuda.synchronize(self.device)
         self.pool_bytes += max(
@@ -241,3 +259,34 @@ class StepProgram:
                 "buffer_bytes": sum(b.numel() * b.element_size()
                                     for b in self._buffers.values())}
 
+
+
+def compiled(fn: Callable, device, capture=None, donate: bool = False):
+    """``fn`` as the one graph of a program of its own: the counterpart of
+    ``jax.jit(fn)`` at a call site (``donate``: of ``donate_argnums=(0,)``
+    for a step ``fn(state, *args) → (state', *outputs)``, whose ``state'``
+    is written into the buffers of ``state``).
+
+    Each call copies its arguments (tensors, or tuples, lists, dicts,
+    NamedTuples and dataclasses of them; None passes) into the program's
+    buffers, where a tensor is not its buffer already, and runs ``fn``
+    through the program (:meth:`StepProgram.run`). The result is the
+    program's buffers, overwritten by the next call. A number among the
+    arguments would be frozen into the graph at its capture: pass it as
+    a tensor. The program is the returned function's ``program``."""
+    prog = StepProgram(device, capture)
+
+    def call(*args):
+        args = prog.keep("args", tuple(args))
+
+        def body():
+            out = fn(*args)
+            if not donate:
+                return prog.keep("out", out)
+            return (prog.keep("args.0", out[0]),
+                    *prog.keep("out", tuple(out[1:])))
+
+        return prog.run("call", body)
+
+    call.program = prog
+    return call

@@ -711,3 +711,128 @@ def test_captured_gaussian_step_equals_eager(cuda):
     for (pa, ba, _), (pb, bb, _) in zip(runs[True], runs[False]):
         assert torch.equal(pa, pb)
         assert all(torch.equal(x, y) for x, y in zip(ba, bb))
+
+
+# ---------------------------------------------------------------------------
+# the scale-out steps and the renders, captured against eager
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_one_rank():
+    """An NCCL group of one rank in this process (the card's scale-out
+    path), torn down after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dbot_ros_tpu_torch.parallel import comm as comm_mod
+
+    comm = comm_mod.init_process_group("nccl", 0, 1, comm_mod.free_port(),
+                                       device="cuda")
+    try:
+        yield comm
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def scale_out_step(what, comm, tracker, capture):
+    """(step, start belief, frames as the step takes them) of one of the
+    scale-out steps over ``comm`` with ``tracker``'s sensor."""
+    from dbot_ros_tpu_torch.parallel import dist_filter
+
+    args = (tracker.sensor, tracker.trans_params, 1 / 30)
+    kw = dict(max_kl_divergence=0.5, seed=2, capture=capture)
+    pose = torch.as_tensor(GRAPH_POSES[:1], device="cuda")
+    P = tracker.config.evaluation_count
+    if what == "multi_scene":
+        groups = dist_filter.make_scene_groups(1, 1)
+        return (dist_filter.make_multi_scene_step(groups, *args, **kw),
+                dist_filter.init_multi_scene_belief(
+                    groups, pose, 2, P, sensor=tracker.sensor))
+    belief = dist_filter.init_distributed_belief(comm, pose, P,
+                                                 sensor=tracker.sensor)
+    if what == "island":
+        return dist_filter.make_island_step(comm, *args, island_max_kl=-1.0,
+                                            **kw), belief
+    return dist_filter.make_distributed_step(
+        comm, *args, exchange=what, **kw), belief
+
+
+@pytest.mark.parametrize("what", ["counts", "all_gather", "island",
+                                  "multi_scene"])
+def test_captured_scale_out_step_equals_eager(cuda, nccl_one_rank, what):
+    """One NCCL rank at 1,000 particles on 30×40: a captured and an eager
+    step (``capture=False``) with the same seed over the same frames give
+    the same beliefs, means and ESS bit for bit, the same paths and the
+    same launches per frame; a multi-scene step's programs share one
+    stream and pool."""
+    from dbot_ros_tpu_torch import config as cfg
+    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+
+    cam, meshes, frames = graph_scene(1)
+    conf = cfg.ParticleTrackerConfig(
+        evaluation_count=1000, backend="pallas", seed=3,
+        observation=cfg.ObservationConfig(model_sigma=0.005,
+                                          sigma_factor=0.0),
+        transition=cfg.TransitionConfig(0.2, 1.0, damping=4.0))
+    tracker = ParticleTracker(conf, meshes=meshes, camera=cam, device=cuda)
+    wrappers = (kernels.fused_loglik, kernels.gather_pixel_rows,
+                kernels.scatter_pixel_rows, kernels.lineage_gather)
+    runs = {}
+    for capture in (True, False):
+        step, belief = scale_out_step(what, nccl_one_rank, tracker, capture)
+        assert step.capture is capture
+        out = []
+        for depth in frames:
+            z = camera.preprocess_depth(torch.as_tensor(
+                depth, device=cuda).reshape(-1))
+            if what == "multi_scene":
+                z = torch.stack([z, z])
+            before = [w.launches for w in wrappers]
+            belief, mean, ess = step(belief, z)
+            torch.cuda.synchronize()
+            leaves = []
+            for b in (belief if isinstance(belief, list) else [belief]):
+                leaves += [b.states, b.log_weights, *b.occlusion]
+            out.append(([x.cpu().clone() for x in leaves + [mean, ess]],
+                        list(step.paths),
+                        [w.launches - b for w, b in zip(wrappers, before)]))
+        runs[capture] = out
+        if capture:
+            progs = (step.programs if what == "multi_scene"
+                     else [step.program])
+            assert all(p.graph_count >= 2 for p in progs)
+            assert len({(id(p.stream), id(p.pool)) for p in progs}) == 1
+    for (la, pa, ka), (lb, pb, kb) in zip(runs[True], runs[False]):
+        assert all(torch.equal(x, y) for x, y in zip(la, lb))
+        assert pa == pb and ka == kb and ka[0] >= 1
+
+
+@pytest.mark.parametrize("kind", ["synthetic", "oracle"])
+def test_captured_render_equals_eager(cuda, kind):
+    """Each source's render captured and eager, same seed and frames:
+    the same depths bit for bit (NaN where one is NaN)."""
+    from dbot_ros_tpu_torch.runtime import sources
+
+    K = np.array([[60.0, 0, 20], [0, 60.0, 15], [0, 0, 1.0]])
+    cam = camera.make_camera(K, 30, 40, device=cuda)
+    m = mesh.tagged_l_mesh()
+
+    def traj(t):
+        return np.array([[0.002 * t, 0.0, 0.6, 1, 0, 0, 0]], np.float32)
+
+    out = {}
+    for capture in (True, False):
+        if kind == "oracle":
+            src = sources.OracleSource(
+                m, sources.scale_camera(cam, 2), traj, 4, seed=1,
+                occluder=mesh.box_mesh(0.03, 0.03, 0.01),
+                occluder_fn=lambda t: np.array(
+                    [0.03 - 0.01 * t, 0.0, 0.45, 1, 0, 0, 0], np.float32),
+                dropout_prob=0.2, dropout_frames=(1, 3),
+                edge_artifacts=0.5, quantize_mm=True, capture=capture)
+        else:
+            src = sources.SyntheticSource(m, cam, traj, 4, seed=1,
+                                          dropout_prob=0.1, capture=capture)
+        out[capture] = [f.depth for f in src]
+        assert src._render.program.graph_count == (1 if capture else 0)
+    for a, b in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a, b)

@@ -6,7 +6,11 @@ Holds no tests: the parent test starts one process per rank,
 
 and each rank joins a gloo group on the CPU, runs every case of
 ``CASES`` in order on the inputs in ``IN.npz`` and writes what it got to
-``OUT_DIR/rank<RANK>.npz`` (keys ``<case>.<name>``). On the first error
+``OUT_DIR/rank<RANK>.npz`` (keys ``<case>.<name>``). Every step runs
+through its step program (over gloo eagerly: ``capture`` is False)
+beside a twin step run by its ``plain`` body from the same belief and
+draws; a case records whether the two were equal bit for bit, paths
+included (``plain_equal``). On the first error
 it writes what it has and the traceback, and exits non-zero. Imports
 torch and the port only (no JAX): a spawned rank must run on a machine
 without it.
@@ -38,7 +42,9 @@ def t(x):
 
 
 def n(x):
-    return x.detach().cpu().float().numpy()
+    """A copy on the host: a step's results are its program's buffers
+    (the belief is donated), which the next step overwrites."""
+    return x.detach().cpu().float().numpy().copy()
 
 
 class Inputs:
@@ -119,13 +125,31 @@ def local_noise(comm, num_objects, L, seed):
             for _ in range(num_objects)]
 
 
+def leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, ParticleBelief):
+        return leaves([x.states, x.log_weights, x.occlusion])
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in leaves(y)]
+    return []
+
+
+def same(a, b):
+    """Whether two step results are equal bit for bit (dtypes too)."""
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
 def occ_record(sensor, occ, L):
     """(map bits or values, ages, (L, N) view) of an occlusion leaf."""
     if isinstance(occ, tuple):
         q, age = occ
-        return (q.view(torch.int16).numpy() if q.dtype == torch.bfloat16
-                else q.numpy()), n(age), n(sensor.occlusion_as_pn(occ, L))
-    return occ.numpy(), np.zeros(0, np.float32), n(occ)
+        return (q.view(torch.int16).numpy().copy()
+                if q.dtype == torch.bfloat16 else n(q)), n(age), \
+            n(sensor.occlusion_as_pn(occ, L))
+    return n(occ), np.zeros(0, np.float32), n(occ)
 
 
 def run_modes(comm, sensor, tp, belief, frames, noises, max_kl, modes=MODES,
@@ -135,15 +159,20 @@ def run_modes(comm, sensor, tp, belief, frames, noises, max_kl, modes=MODES,
     out = {}
     L = belief.num_particles
     for mode in modes:
-        step = dist_filter.make_distributed_step(
+        step, twin = (dist_filter.make_distributed_step(
             comm, sensor, tp, 1 / 30, max_kl_divergence=max_kl,
-            exchange=mode, **kw)
-        b = clone(belief)
+            exchange=mode, **kw) for _ in range(2))
+        assert not step.capture
+        b, ref = clone(belief), clone(belief)
         rec = {k: [] for k in ("states", "lw", "q", "age", "occ", "mean",
                                "ess")}
-        paths = []
+        paths, equal = [], []
         for f, z in enumerate(frames):
-            b, mean, ess = step(b, t(z), noise=noises[f])
+            got = step(b, t(z), noise=noises[f])
+            ref, *want = twin.plain(ref, t(z), noise=noises[f])
+            equal.append(same(got, [ref, *want])
+                         and step.paths == twin.paths)
+            b, mean, ess = got
             q, age, pn = occ_record(sensor, b.occlusion, L)
             for k, v in (("states", n(b.states)), ("lw", n(b.log_weights)),
                          ("q", q), ("age", age), ("occ", pn),
@@ -153,6 +182,7 @@ def run_modes(comm, sensor, tp, belief, frames, noises, max_kl, modes=MODES,
         for k, v in rec.items():
             out[f"{mode}.{k}"] = np.stack(v)
         out[f"{mode}.paths"] = np.array(paths)
+        out[f"{mode}.plain_equal"] = np.array(equal)
     return out
 
 
@@ -191,16 +221,23 @@ def case_skew(comm, inp, name):
 
 def case_generators(comm, inp, name):
     """Without noise: u from the shared generator (the same draws on every
-    rank), e1/e2 from the rank-local one; two steps with one seed agree."""
+    rank), e1/e2 from the rank-local one; two steps with one seed agree,
+    and the programmed step draws what the plain one does."""
     d = inp.group(name)
     sensor, tp, cam = inp.sensor("plain")
     belief = belief_of(comm, sensor, cam, d["states"], d["lw"], d["occ"])
-    outs = []
+    outs, equal = [], []
     for mode in ("all_gather", "counts"):
-        step = dist_filter.make_distributed_step(
+        step, twin = (dist_filter.make_distributed_step(
             comm, sensor, tp, 1 / 30, max_kl_divergence=0.01, exchange=mode,
-            seed=5)
-        b, mean, _ = step(clone(belief), t(d["z"]))
+            seed=5) for _ in range(2))
+        got = step(clone(belief), t(d["z"]))
+        equal.append(same(got, twin.plain(clone(belief), t(d["z"])))
+                     and torch.equal(step.generator.get_state(),
+                                     twin.generator.get_state())
+                     and torch.equal(step.shared_generator.get_state(),
+                                     twin.shared_generator.get_state()))
+        b, mean, _ = got
         outs.append((b, mean))
         shared = torch.rand((4,), generator=step.shared_generator)
         local = torch.rand((4,), generator=step.generator)
@@ -208,26 +245,42 @@ def case_generators(comm, inp, name):
             "occ": np.stack([n(b.occlusion) for b, _ in outs]),
             "mean": np.stack([n(m) for _, m in outs]),
             "shared_all": n(comm.all_gather(shared)),
-            "local_all": n(comm.all_gather(local))}
+            "local_all": n(comm.all_gather(local)),
+            "plain_equal": np.array(equal)}
 
 
 def case_island(comm, inp, name):
+    """The island step with JAX's draws (the island resample fires), and
+    the same frames with a trigger that never fires (``quiet.*``)."""
     d = inp.group(name)
     sensor, tp, cam = inp.sensor("plain")
-    b = belief_of(comm, sensor, cam, d["states"], d["lw"], d["occ"])
-    step = dist_filter.make_island_step(
-        comm, sensor, tp, 1 / 30, max_kl_divergence=float(d["max_kl"]),
-        island_max_kl=float(d["island_max_kl"]))
-    rec = {k: [] for k in ("states", "lw", "occ", "mean", "ess")}
-    for f, z in enumerate(d["z"]):
-        noise = replay((d["e1"], d["e2"], d["u"]), comm, f)
-        b, mean, ess = step(b, t(z), noise=noise,
-                            island_u=t(d["island_u"][f]))
-        for k, v in (("states", n(b.states)), ("lw", n(b.log_weights)),
-                     ("occ", n(b.occlusion)), ("mean", n(mean)),
-                     ("ess", n(ess))):
-            rec[k].append(v)
-    return {k: np.stack(v) for k, v in rec.items()}
+    start = belief_of(comm, sensor, cam, d["states"], d["lw"], d["occ"])
+    out = {}
+    for prefix, island_max_kl in (("", float(d["island_max_kl"])),
+                                  ("quiet.", 1e6)):
+        step, twin = (dist_filter.make_island_step(
+            comm, sensor, tp, 1 / 30, max_kl_divergence=float(d["max_kl"]),
+            island_max_kl=island_max_kl) for _ in range(2))
+        b, ref = clone(start), clone(start)
+        rec = {k: [] for k in ("states", "lw", "occ", "mean", "ess")}
+        paths, equal = [], []
+        for f, z in enumerate(d["z"]):
+            noise = replay((d["e1"], d["e2"], d["u"]), comm, f)
+            kw = dict(noise=noise, island_u=t(d["island_u"][f]))
+            got = step(b, t(z), **kw)
+            ref, *want = twin.plain(ref, t(z), **kw)
+            equal.append(same(got, [ref, *want])
+                         and step.paths == twin.paths)
+            paths.append(",".join(step.paths))
+            b, mean, ess = got
+            for k, v in (("states", n(b.states)), ("lw", n(b.log_weights)),
+                         ("occ", n(b.occlusion)), ("mean", n(mean)),
+                         ("ess", n(ess))):
+                rec[k].append(v)
+        out.update({prefix + k: np.stack(v) for k, v in rec.items()})
+        out[prefix + "paths"] = np.array(paths)
+        out[prefix + "plain_equal"] = np.array(equal)
+    return out
 
 
 def case_scenes(comm, inp, name):
@@ -243,13 +296,18 @@ def case_scenes(comm, inp, name):
         groups, d["poses"], 2, int(d["particles"]), cam.num_pixels,
         sensor=sensor, device="cpu")
     assert len(beliefs) == 1
-    step = dist_filter.make_multi_scene_step(
+    step, twin = (dist_filter.make_multi_scene_step(
         groups, sensor, tp, 1 / 30, max_kl_divergence=float(d["max_kl"]))
+        for _ in range(2))
+    refs = [clone(x) for x in beliefs]
     rec = {k: [] for k in ("states", "lw", "occ", "mean", "ess")}
+    equal = []
     for f in range(d["z"].shape[0]):
         noise = replay((d["e1"][:, s], d["e2"][:, s], d["u"][:, s]), pc, f)
-        beliefs, mean, ess = step(beliefs, t(d["z"][f, s:s + 1]),
-                                  noise=[noise])
+        got = step(beliefs, t(d["z"][f, s:s + 1]), noise=[noise])
+        refs, *want = twin.plain(refs, t(d["z"][f, s:s + 1]), noise=[noise])
+        equal.append(same(got, [refs, *want]) and step.paths == twin.paths)
+        beliefs, mean, ess = got
         b = beliefs[0]
         for k, v in (("states", n(b.states)), ("lw", n(b.log_weights)),
                      ("occ", n(b.occlusion)), ("mean", n(mean[0])),
@@ -258,6 +316,7 @@ def case_scenes(comm, inp, name):
     out = {k: np.stack(v) for k, v in rec.items()}
     out["scene"] = np.array(s)
     out["particle_rank"] = np.array(pc.rank)
+    out["plain_equal"] = np.array(equal)
     return out
 
 

@@ -11,9 +11,17 @@ the CPU, where it runs without capture through the same buffers.
   between frames, one and two objects, a two-island trial, the Gaussian
   step and its frozen trial variant.
 * The graphs' functions read nothing back and copy nothing from the host
-  (what a capture forbids), seen through a dispatch mode.
-* Launch counts over replays, with a stand-in for the CUDA graph.
-* ``capture=True`` on the CPU raises.
+  (what a capture forbids), seen through a dispatch mode: the trackers'
+  steps, the scale-out steps on a gloo group of one rank (the segments
+  the card captures: distributed, island with and without its exchange,
+  two scenes), both sources' renders and the batched Gaussian step
+  through ``graphs.compiled``; each of these programmed against its plain
+  version, bit for bit.
+* The programmed oracle render against JAX's jitted render on JAX's
+  draws (1e-5, equal NaN masks).
+* Launch counts and a group's byte counts over replays, with a stand-in
+  for the CUDA graph.
+* ``capture=True`` on the CPU raises, and over gloo.
 
 The CUDA graphs themselves are held against the eager step on the card
 (tests/test_torch_cuda.py, chip_smoke.py's graph phase).
@@ -21,12 +29,14 @@ The CUDA graphs themselves are held against the eager step on the card
 
 import contextlib
 import dataclasses
+import datetime
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from dbot_ros_tpu.models import transition as jtrans
@@ -34,11 +44,14 @@ from dbot_ros_tpu_torch import config as cfg
 from dbot_ros_tpu_torch.filters import rbcpf, rgf
 from dbot_ros_tpu_torch.models import transition
 from dbot_ros_tpu_torch.ops import kernels
+from dbot_ros_tpu_torch.parallel import comm as comm_mod
+from dbot_ros_tpu_torch.parallel import dist_filter
 from dbot_ros_tpu_torch.runtime import sources, watchdog
 from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
 from dbot_ros_tpu_torch.utils import camera, graphs, mesh
 from dbot_ros_tpu_torch.utils.camera import preprocess_depth
+from tests.test_torch_sources import jax_draws, oracle_scene
 
 torch.set_num_threads(1)
 
@@ -394,6 +407,167 @@ def test_graph_functions_read_nothing_back(monkeypatch):
     assert tr.programs[0].graph_count == 0      # no capture on the CPU
 
 
+@pytest.fixture(scope="module")
+def one_rank():
+    """A gloo group of world size 1 on a HashStore, torn down after."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield comm_mod.Comm()
+    finally:
+        dist.destroy_process_group()
+
+
+def scale_out_runs(comm, what):
+    """(programmed step, its plain twin, a belief, frames) of one of the
+    scale-out steps on a one-rank group: the fused sensor, 128 particles,
+    the island trigger forced (``island_max_kl`` -1) or never firing."""
+    num_objects = 2 if what == "distributed" else 1
+    cam, meshes, frames = scene(num_objects, frames=3)
+    tr = particle_tracker(cam, meshes, particles=128)
+    poses = torch.as_tensor(POSES[:num_objects])
+    args = (tr.sensor, tr.trans_params, 1 / 30)
+    if what == "multi_scene":
+        groups = dist_filter.make_scene_groups(1, 1)
+        belief = dist_filter.init_multi_scene_belief(
+            groups, poses, 2, 128, sensor=tr.sensor, device="cpu")
+        make = lambda: dist_filter.make_multi_scene_step(  # noqa: E731
+            groups, *args, max_kl_divergence=-1.0, seed=4)
+        frames = [np.stack([f, f]) for f in frames]
+    else:
+        belief = dist_filter.init_distributed_belief(
+            comm, poses, 128, sensor=tr.sensor, device="cpu")
+        if what == "distributed":
+            make = lambda: dist_filter.make_distributed_step(  # noqa: E731
+                comm, *args, max_kl_divergence=-1.0, seed=4)
+        else:
+            kl = -1.0 if what == "island_exchange" else 1e6
+            make = lambda: dist_filter.make_island_step(  # noqa: E731
+                comm, *args, max_kl_divergence=0.5, island_max_kl=kl,
+                seed=4)
+    return make(), make(), belief, frames
+
+
+def clone_all(belief):
+    return ([b.clone() for b in belief] if isinstance(belief, list)
+            else belief.clone())
+
+
+@pytest.mark.parametrize("what", ["distributed", "island_exchange",
+                                  "island_quiet", "multi_scene"])
+def test_scale_out_programs_read_nothing_back(monkeypatch, one_rank, what):
+    """The scale-out steps on a one-rank group (the segments the card
+    captures under NCCL), run through their programs eagerly: from its
+    second call on no graph function reads back, makes a tensor from
+    host data or indexes by a mask, and every frame equals the plain
+    step's, bit for bit, paths included (the belief donated: the same
+    buffers every frame)."""
+    step, twin, belief, frames = scale_out_runs(one_rank, what)
+    assert step.capture is False
+    ref = clone_all(belief)
+    buffers = None
+    with audited_programs(monkeypatch) as found:
+        for depth in frames:
+            z = preprocess_depth(torch.as_tensor(depth).reshape(
+                len(depth) if what == "multi_scene" else 1, -1))
+            z = z if what == "multi_scene" else z[0]
+            got = step(belief, z)
+            ref, *want = twin.plain(ref, z)
+            assert_same(got, [ref, *want])
+            assert step.paths == twin.paths and step.paths
+            belief = got[0]
+            ptrs = [x.data_ptr() for x in leaves(belief)]
+            assert buffers in (None, ptrs)
+            buffers = ptrs
+    assert found == []
+    if what.startswith("island"):
+        assert step.paths == ["islands" if what == "island_exchange"
+                              else "none"]
+    else:
+        assert set(step.paths) == {"local"}
+
+
+def test_capture_over_gloo_raises(one_rank):
+    """``capture=True`` needs an NCCL group (a gloo group stages CUDA
+    tensors through the host); None means eager over gloo."""
+    cam, meshes, _ = scene(1, frames=1)
+    tr = particle_tracker(cam, meshes, particles=16)
+    args = (tr.sensor, tr.trans_params, 1 / 30)
+    groups = dist_filter.make_scene_groups(1, 1)
+    for make in (lambda **k: dist_filter.make_distributed_step(
+                     one_rank, *args, **k),
+                 lambda **k: dist_filter.make_island_step(
+                     one_rank, *args, **k),
+                 lambda **k: dist_filter.make_multi_scene_step(
+                     groups, *args, **k)):
+        with pytest.raises(ValueError, match="NCCL"):
+            make(capture=True)
+        assert make().capture is False and make(capture=False).capture \
+            is False
+    assert not one_rank.capturable
+
+
+def test_call_site_programs_equal_their_plain_functions(monkeypatch):
+    """Both sources' renders and the batched Gaussian step through
+    ``graphs.compiled`` (its beliefs donated): under the audit from their
+    second call on, and bit-equal to the plain functions on the same
+    inputs and draws; the programmed oracle render equals JAX's jitted
+    render on JAX's draws (1e-5, equal NaN masks)."""
+    cam, meshes, frames = scene(1, frames=3)
+    jsrc, osrc, ocam = oracle_scene(quantize_mm=True)
+    gt = gaussian_tracker(cam, meshes)
+    gt.initialize(POSES[0], first_frame=frames[0])
+    c = gt.config
+    plain_step = rgf.make_batched_step(
+        gt.render_fn, gt.trans_params, gt._dt, gt.beam_params,
+        iterations=c.update_iterations, occ_params=gt._occ_params)
+    with audited_programs(monkeypatch) as found:
+        step = graphs.compiled(plain_step, "cpu", donate=True)
+        beliefs = rgf.stack_beliefs([gt.belief] * 2)
+        ref = beliefs
+        for f, depth in enumerate(frames):
+            zs = torch.stack([gt._frame(depth)] * 2)
+            got = step(beliefs, zs)
+            ref, ref_info = plain_step(ref, zs)
+            assert_same(got, (ref, ref_info))
+            # donated: from the second call on, the state comes back in
+            # the buffers it was passed in
+            assert (got[0].cov is beliefs.cov) == (f > 0)
+            beliefs = got[0]
+        syn = sources.SyntheticSource(meshes, cam, lambda t: POSES[:1], 3,
+                                      dropout_prob=0.1, seed=2)
+        twin_gen = torch.Generator().manual_seed(2)
+        for t in range(3):
+            pose = torch.as_tensor(POSES[:1])
+            got = syn.render(pose)
+            noise = torch.randn(cam.num_pixels, generator=twin_gen)
+            drop = torch.rand(cam.num_pixels, generator=twin_gen)
+            plain = syn._render_plain(pose, noise, drop)
+            assert torch.equal(torch.isnan(got), torch.isnan(plain))
+            assert torch.equal(got.nan_to_num(), plain.nan_to_num())
+            assert bool(torch.isnan(got).any())
+        key = jax.random.PRNGKey(5)
+        for t, jf in enumerate(jsrc):
+            key, k = jax.random.split(key)
+            draws = jax_draws(k, ocam.num_pixels, ocam.height, ocam.width)
+            poses, occ, p_drop = osrc.frame_inputs(t)
+            args = (torch.as_tensor(poses), torch.as_tensor(occ))
+            got = osrc.render(*args, p_drop, draws)
+            plain = osrc._render_plain(*args, torch.tensor(p_drop), draws)
+            assert torch.equal(torch.isnan(got), torch.isnan(plain))
+            assert torch.equal(got.nan_to_num(), plain.nan_to_num())
+            want = np.asarray(jf.depth)
+            np.testing.assert_array_equal(np.isnan(got.numpy()),
+                                          np.isnan(want))
+            ok = ~np.isnan(want)
+            np.testing.assert_allclose(got.numpy()[ok], want[ok], atol=1e-5,
+                                       rtol=0)
+    assert found == []
+    for prog in (step.program, syn._render.program, osrc._render.program):
+        assert not prog.capture and prog.graph_count == 0
+
+
 # ---------------------------------------------------------------------------
 # launch counts over replays; capture=True on the CPU
 # ---------------------------------------------------------------------------
@@ -455,6 +629,43 @@ def test_launch_counts_survive_replays(monkeypatch):
         prog.run("loose", lambda: torch.ones(2))
     assert kernels.fused_loglik.launches == 5 * per_call[
         (kernels.fused_loglik, "launches")]
+
+
+def test_a_failed_capture_raises(monkeypatch):
+    """A capture that fails (here: the stand-in refuses, as CUDA refuses a
+    host read while a stream captures) raises from the step; nothing
+    falls back to the eager step, and nothing is kept as captured."""
+    stand_in_cuda(monkeypatch)
+
+    @contextlib.contextmanager
+    def refusing(*a, **k):
+        yield
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(torch.cuda, "graph", refusing)
+    prog = graphs.StepProgram("cpu")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capturing the step's graph"):
+            prog.run("step", lambda: prog.keep("out", torch.ones(2)))
+    assert prog.graph_count == 0
+
+
+def test_comm_byte_counts_survive_replays(monkeypatch, one_rank):
+    """A graph function that all-reduces over a group (counted as three
+    ranks, so that it sends bytes): with the group's byte counters given
+    to the program, N calls count N all-reduces over replays."""
+    stand_in_cuda(monkeypatch)
+    monkeypatch.setattr(one_rank, "size", 3)
+    prog = graphs.StepProgram("cpu", counters=one_rank.counters())
+    x = torch.ones(4)
+    before = dict(one_rank.bytes_sent)
+    for _ in range(5):
+        prog.run("step", lambda: prog.keep("out", one_rank.all_reduce(x)))
+    assert prog._graphs["step"].graph.replays == 4
+    sent = {k: one_rank.bytes_sent[k] - before[k] for k in before}
+    assert sent == {"all_gather": 0, "all_reduce": 5 * 16 * 2,
+                    "ppermute": 0}
 
 
 def test_capture_on_the_cpu_raises():

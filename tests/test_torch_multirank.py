@@ -18,7 +18,12 @@ inputs, and the ranks replay JAX's draws:
   bits), and the counts overflow falling back to the ring;
 * the default generators (``u`` shared, ``e1``/``e2`` per rank), the lazy
   ages of two ranks (ROADMAP.md §C), ``run_scaling`` at [1, 2], the dry
-  run at world size 4, and a rank that skips a collective.
+  run at world size 4, and a rank that skips a collective;
+* every step through its step program (``capture`` False over gloo)
+  bit-equal to its plain body (``plain``) with the same paths: each
+  exchange on every case above, the counts overflow, the default
+  generators, the island step with and without an island resample, and
+  the multi-scene step.
 
 Every group has a timeout (60 s; 3 s in the skipped-collective case) and
 the ranks have one as a whole, so a hang fails instead of blocking.
@@ -560,3 +565,26 @@ def test_a_rank_that_skips_a_collective_fails_within_the_timeout(runs):
     timeout = float(ranks(runs, "hang", "timeout", [0])[0])
     assert raised, "the collective returned although its peer skipped it"
     assert seconds < timeout + 5.0, seconds
+
+
+PLAIN_CASES = ([(c, m) for c in SKEW_CASES
+                for m in ("all_gather", "ring", "neighbor", "counts")]
+               + [("overflow", "all_gather"), ("overflow", "counts"),
+                  ("generators", None), ("island", None),
+                  ("island", "quiet"), ("scenes", None)])
+
+
+@pytest.mark.parametrize("case,mode", PLAIN_CASES)
+def test_programmed_step_is_bit_equal_to_the_plain_step(runs, case, mode):
+    """The step program's functions, run eagerly over gloo, against the
+    step's plain body on every rank and frame: states, log weights, the
+    occlusion leaf, mean and ESS equal bit for bit, the same exchange
+    paths (and, without noise, the generators left in the same state)."""
+    key = "plain_equal" if mode is None else f"{mode}.plain_equal"
+    for r, ok in enumerate(ranks(runs, case, key)):
+        assert np.all(ok), (r, ok)
+    if case == "island":
+        # JAX's frames exchange whole blocks; the quiet trigger never does
+        want = "none" if mode else "islands"
+        paths = ranks(runs, case, f"{mode}.paths" if mode else "paths")
+        assert all([str(p) for p in x] == [want] * 2 for x in paths), paths
