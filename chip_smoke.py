@@ -192,7 +192,25 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    ``capture=True`` must raise; the dry run
    (``parallel.dryrun``) at world size 2. A rank that fails, or outlives
    its time, fails the phase. One card cannot measure scaling
-   efficiency: these are mechanics.
+   efficiency: these are mechanics;
+15. eval: the port held to the JAX tracker on the same frames
+   (``runtime.eval_suite``, the counterpart of the reference's accuracy
+   suite): the ``production`` set first (the 10k certification's four
+   protocols at 80×60, 10,000 particles, the fused sensor's production
+   defaults, and the Gaussian tracker at 6 iterations on two of them),
+   then the ``eval`` set (six scenarios at 40×30, each with the four
+   estimators ``pf-xla``, ``pf-deferred``, ``pf-pallas`` and ``rgf``),
+   each leg over the JAX legs' tracker seeds (1-3) with captured
+   trackers, from the frames in ``tests/fixtures/torch_eval``. One line
+   per set: per leg the port's mean and spread, the JAX mean and spread
+   from ``jax_reference.json``, the bound, pass or fail, frames,
+   particles, seconds, and on ``pf-pallas`` legs the four kernels'
+   launches. Fails if a leg's mean is over its bound in a metric that
+   ``eval_suite.FILED`` does not file for it, if a kernel was not
+   launched on a ``pf-pallas`` leg, or if the phase took over 180 s. A
+   filed miss (a leg whose cause is written in ``ROADMAP.md`` §C) is
+   reported with ``passed`` false, its ``filed`` metrics and the
+   phase's ``filed`` list, and does not fail the run.
 
 The kernels phase also times the two row kernels cold, and the lineage
 gather at two widths: the exchange's shapes for two ranks of 5,000
@@ -205,11 +223,13 @@ The kernels line gives each kernel's launches in the slice
 phase's one-rank run (``scale_launches``), in the objects phase's 60
 frames (``objects_launches``), in the options phase's checks
 (``options_launches``), in the graph phase's captured runs
-(``graph_launches``) and in the scale phase's captured lockstep runs
-(``scale_graph_launches``), each counted from 0 just before that path
-and read just after.
+(``graph_launches``), in the scale phase's captured lockstep runs
+(``scale_graph_launches``) and in the eval phase's legs
+(``eval_launches``), each counted from 0 just before that path and
+read just after.
 
-Each phase prints one JSON line; any failure raises (exit code != 0).
+Each phase prints one JSON line; any failure raises (exit code != 0);
+the eval phase's failures raise after the kernels line.
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 ``python3 chip_smoke.py --compare`` runs only what a comparison of two
@@ -384,6 +404,9 @@ GRAPH_TRIAL_FRAMES = 1000
 # on the same inputs): poses and every leaf of the belief
 GRAPH_ATOL = 0.0
 GRAPH_PROFILE_DIR = BUILD_DIR / "profile_graph"
+EVAL_FIXTURES = (Path(__file__).resolve().parent / "tests" / "fixtures"
+                 / "torch_eval")
+EVAL_LIMIT_S = 180.0
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
                      "dbot_ros_tpu/ops/raycast_pallas.py:192"),
@@ -394,10 +417,7 @@ KERNELS = {
     "lineage_gather": ("dbot_ros_tpu_torch/csrc/lineage_gather.cu",
                        "dbot_ros_tpu/ops/raycast_pallas.py:430"),
 }
-WRAPPERS = {"fused_loglik": kernels.fused_loglik,
-            "gather_pixel_rows": kernels.gather_pixel_rows,
-            "scatter_pixel_rows": kernels.scatter_pixel_rows,
-            "lineage_gather": kernels.lineage_gather}
+WRAPPERS = kernels.WRAPPERS
 
 
 def emit(obj):
@@ -3235,6 +3255,53 @@ def phase_scale(dev, card):
     return launches, graph_launches
 
 
+def phase_eval(dev, card):
+    """Both sets of the accuracy suite on the card, ``production`` first;
+    one line per set. Returns each kernel's launches over the phase and
+    what failed (a leg over its bound in a metric ``FILED`` does not
+    file for it, a kernel a ``pf-pallas`` leg never launched, the phase
+    over its time), which ``main`` raises on after the kernels line."""
+    from dbot_ros_tpu_torch.runtime import eval_suite
+
+    keys = ("estimator", "frames", "particles", "seeds", "mean", "sd",
+            "jax_mean", "jax_sd", "bound", "passed", "over_bound",
+            "filed", "seconds")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    failed, filed = [], []
+    for set_name in eval_suite.SETS:
+        res = eval_suite.run_set(EVAL_FIXTURES, set_name, dev)
+        torch.cuda.empty_cache()
+        legs = {}
+        for name, r in res["legs"].items():
+            legs[name] = {k: r[k] for k in keys}
+            miss = eval_suite.unfiled(name, r["over_bound"])
+            if miss:
+                failed.append(f"{name} over its bound in {miss}"
+                              f" (port mean {r['mean']}, bound "
+                              f"{r['bound']})")
+            if r["filed"]:
+                filed.append(f"{name} over its bound in {r['filed']}, "
+                             f"filed in ROADMAP.md §C")
+            if r["estimator"] == "pf-pallas":
+                legs[name]["launches"] = r["launches"]
+                idle = [k for k, n in r["launches"].items() if n == 0]
+                if idle:
+                    failed.append(f"{name}: {idle} never launched")
+        emit({"phase": "eval", "set": set_name, "nvidia_smi": card,
+              "device": res["device"], "jax_commit": res["jax_commit"],
+              "legs_passed": sum(r["passed"] for r in legs.values()),
+              "legs": len(legs), "seconds": res["seconds"], "results": legs})
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    if seconds > EVAL_LIMIT_S:
+        failed.append(f"{seconds:.1f} s, over its {EVAL_LIMIT_S:.0f} s")
+    emit({"phase": "eval", "seconds": seconds, "launches": launches,
+          "filed": filed, "failed": failed})
+    return launches, failed
+
+
 def main(argv=None):
     compare = "--compare" in (sys.argv[1:] if argv is None else argv)
     card = phase_device()
@@ -3260,6 +3327,7 @@ def main(argv=None):
     phase_deferred(dev)
     live_launches = phase_live(dev, card)
     scale_launches, scale_graph_launches = phase_scale(dev, card)
+    eval_launches, eval_failed = phase_eval(dev, card)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "live_launches": live_launches[name],
@@ -3268,6 +3336,7 @@ def main(argv=None):
          "objects_launches": objects_launches[name],
          "options_launches": options_launches[name],
          "graph_launches": graph_launches[name],
+         "eval_launches": eval_launches[name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
@@ -3276,6 +3345,7 @@ def main(argv=None):
          **{k: kres[name][k] for k in ("second_level", "two_widths")
             if k in kres[name]}}
         for name, (src, rep) in KERNELS.items()]})
+    check(not eval_failed, "eval: " + "; ".join(eval_failed))
     emit(ok_line())
     return 0
 

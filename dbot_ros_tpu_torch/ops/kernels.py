@@ -416,3 +416,10 @@ lineage_gather.launches = 0
 # launches with a source and an output of different widths (the
 # distributed exchanges), counted again here
 lineage_gather.two_width_launches = 0
+
+# the four kernels' wrappers by name; each counts its launches in
+# ``launches``
+WRAPPERS = {"fused_loglik": fused_loglik,
+            "gather_pixel_rows": gather_pixel_rows,
+            "scatter_pixel_rows": scatter_pixel_rows,
+            "lineage_gather": lineage_gather}

@@ -639,8 +639,11 @@ class DistributedStep:
     graphs are captured, see :func:`resolve_capture`). **The belief is
     donated**: the returned belief is the program's buffers, which the
     next call overwrites (``ParticleBelief.clone()`` keeps a copy); a
-    belief from elsewhere is copied in. :meth:`plain` is the same step
-    without a program, the reference the programmed step is held to."""
+    belief from elsewhere is copied in. ``mean_state`` and ``ess`` are
+    copies out of the buffers, as in the reference, where only the
+    belief is donated: they outlive the next call. :meth:`plain` is the
+    same step without a program, the reference the programmed step is
+    held to."""
 
     def __init__(self, comm, body, seed, capture=None):
         self.comm = comm
@@ -666,8 +669,9 @@ class DistributedStep:
         noise = _program_noise(self.program, belief, noise,
                                lambda: self._generators(dev))
         self.paths = []
-        return self._body.run(self.program, self.comm, belief, z_obs, noise,
-                              self.paths)
+        belief, mean_state, ess = self._body.run(
+            self.program, self.comm, belief, z_obs, noise, self.paths)
+        return (belief, *graphs.copy_out((mean_state, ess)))
 
     def plain(self, belief: ParticleBelief, z_obs,
               noise: Optional[Sequence[BlockNoise]] = None):
@@ -1015,7 +1019,8 @@ class IslandStep:
     from the rank-local generator, ``island_u`` from the shared one (one
     draw a step on every rank). A step program runs it and the belief is
     donated, as in :class:`DistributedStep` (``plain``: without the
-    program). ``paths`` holds ``["islands"]`` after a step that exchanged
+    program; ``mean_state`` and ``ess`` are copies that outlive the next
+    call). ``paths`` holds ``["islands"]`` after a step that exchanged
     whole blocks, else ``["none"]``."""
 
     def __init__(self, comm, body, seed, capture=None):
@@ -1048,8 +1053,9 @@ class IslandStep:
             island_u = prog.keep("island_u", torch.as_tensor(
                 island_u, dtype=torch.float32))
         self.paths = []
-        return self._body.run(prog, self.comm, belief, z_obs, noise,
-                              island_u, self.paths)
+        belief, mean_state, ess = self._body.run(
+            prog, self.comm, belief, z_obs, noise, island_u, self.paths)
+        return (belief, *graphs.copy_out((mean_state, ess)))
 
     def plain(self, belief, z_obs, noise=None, island_u=None):
         """The step without a program (see :meth:`DistributedStep.plain`)."""

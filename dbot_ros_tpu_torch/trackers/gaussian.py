@@ -174,7 +174,7 @@ class GaussianTracker:
             return prog.keep("belief", new), prog.keep("info", info)
 
         new, info = prog.run("step", step)
-        return _copy(new), _copy(info)
+        return graphs.copy_out(new), graphs.copy_out(info)
 
     @property
     def centers(self):
@@ -356,11 +356,3 @@ class GaussianTracker:
                     info)
         return base.to_model_frame(self._smoothed, self.centers), info
 
-
-
-def _copy(x):
-    """A frozen dataclass of tensors (and None) with every tensor copied."""
-    return dataclasses.replace(x, **{
-        f.name: getattr(x, f.name).clone()
-        for f in dataclasses.fields(x)
-        if isinstance(getattr(x, f.name), torch.Tensor)})

@@ -29,7 +29,9 @@ those buffers. Whatever keeps a belief across a ``track`` call owns a
 copy or reads it first (a checkpoint save reads it at once). A belief
 set from outside (``initialize``, ``restore``, a re-initialization by the
 watchdog or a command) is copied into the buffers by the next step and
-never written; nothing recaptures.
+never written; nothing recaptures. Only the belief is donated: the
+StepInfo a step returns is copied out of the buffers and outlives the
+next step, as the reference's does.
 """
 
 from __future__ import annotations
@@ -278,7 +280,9 @@ class ParticleTracker:
         """One filter step of ``belief`` through the step program of
         ``generator``'s island (see the module docstring): the same
         result, bit for bit, as ``rbcpf.rbcpf_step`` drawing from
-        ``generator``. Returns the program's buffers."""
+        ``generator``. Returns the belief as the program's buffers
+        (donated: the next step overwrites them) and the StepInfo as
+        copies out of them, which outlive the next step."""
         prog = self._program(generator)
         bel = prog.keep("belief", belief)
         z = prog.keep("z", z)
@@ -292,7 +296,7 @@ class ParticleTracker:
         info = None
         for b in range(K):
             info = self._block(prog, b, bel, z, dt, noise[b])
-        return dataclasses.replace(bel), info
+        return dataclasses.replace(bel), graphs.copy_out(info)
 
     def _block(self, prog, b, bel, z, dt, nb):
         """Coordinate block ``b`` of a step (``rbcpf.program_block``): with

@@ -261,6 +261,24 @@ class StepProgram:
 
 
 
+def copy_out(x):
+    """``x`` with every tensor in it copied (a tensor, or a tuple or a
+    dataclass of tensors and None). A step returns its outputs other than
+    the donated belief this way, out of the program's buffers, so that
+    the next step does not overwrite what a caller kept: the reference
+    donates only the belief. Called after the replay, on its stream: no
+    host read."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(copy_out(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: copy_out(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
+
+
 def compiled(fn: Callable, device, capture=None, donate: bool = False):
     """``fn`` as the one graph of a program of its own: the counterpart of
     ``jax.jit(fn)`` at a call site (``donate``: of ``donate_argnums=(0,)``

@@ -806,6 +806,68 @@ def test_captured_scale_out_step_equals_eager(cuda, nccl_one_rank, what):
         assert pa == pb and ka == kb and ka[0] >= 1
 
 
+@pytest.mark.parametrize("what", ["track", "trial", "counts", "island"])
+def test_captured_step_outputs_outlive_the_next_step(cuda, nccl_one_rank,
+                                                     what):
+    """Captured (graph replays): the outputs a step returns besides the
+    belief (the tracker's StepInfo, in a two-island trial the winner's;
+    the one-rank NCCL steps' mean and ESS) are left as they were by the
+    next step and share no storage with its outputs; the belief stays
+    donated (the same buffers every frame)."""
+    from dbot_ros_tpu_torch import config as cfg
+    from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
+    from dbot_ros_tpu_torch.utils import graphs
+
+    cam, meshes, frames = graph_scene(1)
+    conf = cfg.ParticleTrackerConfig(
+        evaluation_count=1000, backend="pallas", seed=3,
+        observation=cfg.ObservationConfig(model_sigma=0.005,
+                                          sigma_factor=0.0),
+        transition=cfg.TransitionConfig(0.2, 1.0, damping=4.0))
+    tracker = ParticleTracker(conf, meshes=meshes, camera=cam, device=cuda,
+                              capture=True)
+    if what in ("track", "trial"):
+        hyp = None
+        if what == "trial":
+            rival = GRAPH_POSES[:1].copy()
+            rival[0, 0] += 0.01
+            hyp = np.stack([rival, GRAPH_POSES[:1]])
+        tracker.initialize(GRAPH_POSES[:1], hypotheses=hyp, trial_frames=2)
+
+        def step(depth):
+            _, info = tracker.track(depth)
+            return tracker.belief, dataclasses.astuple(info)
+    else:
+        prog_step, state = scale_out_step(what, nccl_one_rank, tracker, True)
+        state = [state]
+
+        def step(depth):
+            z = camera.preprocess_depth(torch.as_tensor(
+                depth, device=cuda).reshape(-1))
+            state[0], mean, ess = prog_step(state[0], z)
+            return state[0], (mean, ess)
+
+    def storages(xs):
+        return {x.untyped_storage().data_ptr() for x in xs}
+
+    kept, clones, buffers = [], [], []
+    for depth in frames:
+        belief, out = step(depth)
+        torch.cuda.synchronize()
+        for k, c in zip(kept, clones):
+            assert all(torch.equal(x, y) for x, y in zip(k, c))
+            assert not storages(k) & storages(out)
+        kept.append(out)
+        clones.append(graphs.copy_out(out))
+        buffers.append([x.data_ptr() for x in (
+            belief.states, belief.log_weights, *belief.occlusion)])
+    assert buffers[-1] == buffers[-2]
+    progs = (tracker.programs.values() if what in ("track", "trial")
+             else [prog_step.program])
+    assert all(p.capture for p in progs)
+    assert sum(p.graph_count for p in progs) >= 2
+
+
 @pytest.mark.parametrize("kind", ["synthetic", "oracle"])
 def test_captured_render_equals_eager(cuda, kind):
     """Each source's render captured and eager, same seed and frames:

@@ -21,6 +21,8 @@ the CPU, where it runs without capture through the same buffers.
   draws (1e-5, equal NaN masks).
 * Launch counts and a group's byte counts over replays, with a stand-in
   for the CUDA graph.
+* Only the belief is donated: the StepInfo of ``track`` (in a trial
+  too) and the scale-out steps' means and ESS outlive the next step.
 * ``capture=True`` on the CPU raises, and over gloo.
 
 The CUDA graphs themselves are held against the eager step on the card
@@ -566,6 +568,68 @@ def test_call_site_programs_equal_their_plain_functions(monkeypatch):
     assert found == []
     for prog in (step.program, syn._render.program, osrc._render.program):
         assert not prog.capture and prog.graph_count == 0
+
+
+# ---------------------------------------------------------------------------
+# only the belief is donated: the other outputs outlive the next step
+# ---------------------------------------------------------------------------
+
+def storages(x):
+    return {v.untyped_storage().data_ptr() for v in leaves(x)}
+
+
+def outlive_runs(comm, what):
+    """(a function stepping one frame → (belief, the step's other
+    outputs), frames) for ``track`` (plain, or a 2-island trial whose
+    second frame returns the winner's info) and the one-rank
+    ``DistributedStep`` and ``IslandStep``."""
+    if what in ("track", "trial"):
+        cam, meshes, frames = scene(1, frames=3)
+        tr = particle_tracker(cam, meshes, particles=128)
+        if what == "trial":
+            rival = POSES[:1].copy()
+            rival[0, 0] += 0.01
+            tr.initialize(POSES[:1], hypotheses=np.stack([rival, POSES[:1]]),
+                          trial_frames=2, trial_switch_margin=0.0)
+        else:
+            tr.initialize(POSES[:1])
+
+        def track(depth):
+            _, info = tr.track(depth)
+            return tr.belief, info
+        return track, frames
+    step, _, belief, frames = scale_out_runs(comm, what)
+    state = {"belief": belief}
+
+    def call(depth):
+        z = preprocess_depth(torch.as_tensor(depth).reshape(-1))
+        state["belief"], *out = step(state["belief"], z)
+        return state["belief"], tuple(out)
+    return call, frames
+
+
+@pytest.mark.parametrize("what", ["track", "trial", "distributed",
+                                  "island_exchange"])
+def test_step_outputs_outlive_the_next_step(one_rank, what):
+    """A caller keeps each step's outputs other than the belief (the
+    tracker's StepInfo, in a trial the winner's; the scale-out steps'
+    ``mean_state`` and ``ess``): the next step leaves them as they were
+    and shares no storage with them, as in the reference, which donates
+    only the belief. The belief stays donated (the same buffers every
+    frame)."""
+    step, frames = outlive_runs(one_rank, what)
+    kept, clones, beliefs = [], [], []
+    for depth in frames:
+        belief, out = step(depth)
+        for k, c in zip(kept, clones):
+            assert_same(k, c)
+            assert not storages(k) & storages(out)
+        kept.append(out)
+        clones.append(graphs.copy_out(out))
+        beliefs.append([x.data_ptr() for x in leaves(belief)])
+    assert beliefs[-1] == beliefs[-2]
+    assert not any(storages(a) & storages(b)
+                   for i, a in enumerate(kept) for b in kept[i + 1:])
 
 
 # ---------------------------------------------------------------------------

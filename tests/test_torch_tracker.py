@@ -156,9 +156,13 @@ def assert_beliefs_match(pbel, pinfo, ps, jbel, jinfo, js):
     np.testing.assert_allclose(sp[keep], sj[keep], atol=2e-5)
     lw_p, lw_j = n(pbel.log_weights), np.asarray(jbel.log_weights)
     np.testing.assert_allclose(lw_p[keep], lw_j[keep], rtol=1e-6, atol=1e-2)
-    np.testing.assert_allclose(
-        n(ps.occlusion_as_pn(pbel.occlusion, P))[keep],
-        np.asarray(js.occlusion_as_pn(jbel.occlusion, P))[keep], atol=1e-5)
+    # the fused sensors' maps are (pixels, particles); the others' (P, N)
+    occ_p, occ_j = pbel.occlusion, jbel.occlusion
+    if hasattr(ps, "occlusion_as_pn"):
+        occ_p = ps.occlusion_as_pn(occ_p, P)
+        occ_j = js.occlusion_as_pn(occ_j, P)
+    np.testing.assert_allclose(n(occ_p)[keep], np.asarray(occ_j)[keep],
+                               atol=1e-5)
     w_p = n(torch.softmax(pbel.log_weights, 0))
     w_j = np.asarray(jax.nn.softmax(jbel.log_weights))
     carried = w_p[moved].sum() + w_j[moved].sum()
