@@ -179,8 +179,15 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    launches per frame equal, each scene's position RMSE under 1 cm;
    step ms median and p90 of both timed in turns (captured, eager,
    eager, captured) between two turns of the captured ``track`` on the
-   same frame; graphs, capture seconds and pool MB. Then two gloo
-   ranks started with ``spawn`` share the card, 5,000 particles each,
+   same frame; graphs, capture seconds and pool MB. Before all of it
+   the resampling CDF (``resample.weight_cdf``) at 10,000 and 100,000
+   weights, called 1,000 times each while a side stream keeps the card
+   busy, must repeat to the bit; the calls of a one-row ``torch.cumsum``
+   on the same weights that differ from its first are counted beside it
+   (what it replaced: its single-pass scan groups the sums by which tiles
+   finished first, and a systematic threshold at such a CDF step picks
+   another parent, so captured and eager steps drifted apart). Then two
+   gloo ranks started with ``spawn`` share the card, 5,000 particles each,
    collectives staged through pinned host memory: on a frame whose
    surplus fits the counts buffers (C = 640) and on one that overflows
    to the ring, ``counts``, ``ring`` and ``neighbor`` must equal
@@ -200,17 +207,22 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    defaults, and the Gaussian tracker at 6 iterations on two of them),
    then the ``eval`` set (six scenarios at 40×30, each with the four
    estimators ``pf-xla``, ``pf-deferred``, ``pf-pallas`` and ``rgf``),
-   each leg over the JAX legs' tracker seeds (1-3) with captured
-   trackers, from the frames in ``tests/fixtures/torch_eval``. One line
-   per set: per leg the port's mean and spread, the JAX mean and spread
-   from ``jax_reference.json``, the bound, pass or fail, frames,
-   particles, seconds, and on ``pf-pallas`` legs the four kernels'
-   launches. Fails if a leg's mean is over its bound in a metric that
-   ``eval_suite.FILED`` does not file for it, if a kernel was not
-   launched on a ``pf-pallas`` leg, or if the phase took over 180 s. A
-   filed miss (a leg whose cause is written in ``ROADMAP.md`` §C) is
-   reported with ``passed`` false, its ``filed`` metrics and the
-   phase's ``filed`` list, and does not fail the run.
+   each leg over its rule's tracker seeds (1-10 for the particle
+   filters, 1-3 for the deterministic Gaussian filter) with captured
+   trackers, from the frames in ``tests/fixtures/torch_eval``, judged
+   by the rule of ``jax_reference.json``'s ``bound_rule`` (a one-sided
+   Welch test against JAX's seeds for the particle filters, a floor over
+   JAX's mean for the Gaussian filter). One line per set: per leg the
+   port's mean and spread, the JAX mean and spread, per metric ``diff``,
+   ``threshold`` and ``slack``, the seeds of each side over 2 cm in the
+   worst error, pass or fail, frames, particles, seconds, and on
+   ``pf-pallas`` legs the four kernels' launches. Then the power check:
+   ``eval/fast_rot/pf-pallas`` at its seeds with both transition sigmas
+   × 0.1 (a belief too stiff to follow the rotation), its ``diff``,
+   ``threshold`` and ``slack`` beside the real leg's. Every result goes
+   to ``build/eval_results.json``. Fails if a leg fails its rule, if a
+   kernel was not launched on a ``pf-pallas`` leg, if the power check
+   passes the rule, or if the phase took over 180 s.
 
 The kernels phase also times the two row kernels cold, and the lineage
 gather at two widths: the exchange's shapes for two ranks of 5,000
@@ -243,6 +255,7 @@ the same card.
 """
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -358,6 +371,7 @@ SCALE_RANKS = 2
 SCALE_GROUP_TIMEOUT_S = 120.0
 SCALE_RANK_TIMEOUT_S = 300.0
 SCALE_WARMUP, SCALE_STEPS = 2, 5
+CDF_SIZES, CDF_CALLS = (10_000, 100_000), 1_000
 # one-rank step against rbcpf_step: occlusion of the particles that kept
 # their parent within one bf16 step (a moved parent shifts the cloud's
 # mean, and with it, rarely, a candidate pixel)
@@ -407,6 +421,11 @@ GRAPH_PROFILE_DIR = BUILD_DIR / "profile_graph"
 EVAL_FIXTURES = (Path(__file__).resolve().parent / "tests" / "fixtures"
                  / "torch_eval")
 EVAL_LIMIT_S = 180.0
+EVAL_RESULTS = BUILD_DIR / "eval_results.json"
+# the eval phase's power check: a leg whose transition is too stiff for
+# its motion, which the rule must fail
+EVAL_POWER_LEG = "eval/fast_rot/pf-pallas"
+EVAL_POWER_SCALE = 0.1
 KERNELS = {
     "fused_loglik": ("dbot_ros_tpu_torch/csrc/fused_loglik.cu",
                      "dbot_ros_tpu/ops/raycast_pallas.py:192"),
@@ -2938,16 +2957,45 @@ def scale_step_paths(dev, comm, tracker, traj):
                 SCALE_SCENES, P, sensor=sensor), two, two_truth)}
 
 
-def scale_lockstep(tracker, make, start, frames, truth):
-    """A captured and an eager step (``make(capture)``) from the same start
-    belief over the same frames (all but the last) in lockstep: the
-    largest difference of means, ESS and beliefs after each frame, the
-    launches per frame, the paths, the captured run's position RMSE per
-    scene; then step ms in turns with the captured ``track`` on the last
-    frame."""
+def cdf_repeatability(dev):
+    """The resampling CDF and a one-row ``torch.cumsum`` on the same
+    weights, ``CDF_CALLS`` calls each per size while a side stream keeps
+    the card busy: how many calls differ in any bit from the first. The
+    CDF must repeat."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 41)
+    busy, side = torch.randn(2048, 2048, device=dev), torch.cuda.Stream()
+    out = {}
+    for n in CDF_SIZES:
+        w = torch.softmax(3.0 * torch.randn(n, generator=g, device=dev), 0)
+        for name, fn in (("weight_cdf", resample.weight_cdf),
+                         ("cumsum_one_row", lambda x: torch.cumsum(x, 0))):
+            first = fn(w).clone()
+            differ = 0
+            for i in range(CDF_CALLS):
+                if i % 8 == 0:
+                    with torch.cuda.stream(side):
+                        busy @ busy
+                differ += int(bit_diff(fn(w), first) != 0.0)
+            out[f"{name}/{n}"] = differ
+    torch.cuda.synchronize()
+    out["calls"] = CDF_CALLS
+    check(all(out[f"weight_cdf/{n}"] == 0 for n in CDF_SIZES),
+          f"scale: the resampling CDF does not repeat {out}")
+    return out
+
+
+def scale_lockstep(name, tracker, make, start, frames, truth):
+    """A captured and an eager step (``make(capture)``) of the path ``name``
+    from the same start belief over the same frames (all but the last) in
+    lockstep: the largest difference of means, ESS and beliefs after each
+    frame, the launches per frame, the paths, the captured run's position
+    RMSE per scene; then step ms in turns with the captured ``track`` on
+    the last frame."""
     steps = {c: make(c) for c in (True, False)}
     check(steps[True].capture and not steps[False].capture,
-          "scale: the one-rank NCCL step is not captured by default")
+          f"scale: {name}: the one-rank NCCL step is not captured by "
+          "default")
     beliefs = {c: start() for c in (True, False)}
     per_frame = {True: [], False: []}
     diff = {"mean": 0.0, "ess": 0.0, "belief": 0.0}
@@ -2961,7 +3009,7 @@ def scale_lockstep(tracker, make, start, frames, truth):
                                  for k, w in WRAPPERS.items()})
             out[c] = (mean.reshape(-1, *mean.shape[-2:]), ess)
         check(steps[True].paths == steps[False].paths,
-              f"scale: paths {steps[True].paths} against "
+              f"scale: {name}: paths {steps[True].paths} against "
               f"{steps[False].paths}")
         paths.update(steps[True].paths)
         for k, a, b in (("mean", out[True][0], out[False][0]),
@@ -2975,13 +3023,14 @@ def scale_lockstep(tracker, make, start, frames, truth):
     rmse = np.sqrt(np.mean(np.square(err), axis=0)).reshape(-1).tolist()
     launches = {k: sum(f[k] for f in per_frame[True]) for k in WRAPPERS}
     check(per_frame[True] == per_frame[False],
-          f"scale: launches per frame captured {per_frame[True]} against "
+          f"scale: {name}: launches per frame captured "
+          f"{per_frame[True]} against "
           f"eager {per_frame[False]}")
     check(all(v <= GRAPH_ATOL for v in diff.values()),
-          f"scale: captured against eager {diff}")
-    check(max(rmse) < RMSE_LIMIT_M, f"scale: position RMSE {rmse} m")
+          f"scale: {name}: captured against eager {diff}")
+    check(max(rmse) < RMSE_LIMIT_M, f"scale: {name}: position RMSE {rmse} m")
     check(all(launches[k] > 0 for k in WRAPPERS),
-          f"scale: a kernel never launched captured {launches}")
+          f"scale: {name}: a kernel never launched captured {launches}")
     # timed in turns: track, captured, eager, eager, captured, track
     z, depth = frames[-1], frames[-1].reshape(-1, frames[-1].shape[-1])[0]
     depth = depth.cpu()
@@ -3034,8 +3083,8 @@ def scale_steps(dev, comm, tracker, traj):
     out, total = {}, {k: 0 for k in WRAPPERS}
     for name, (make, start, frames, truth) in scale_step_paths(
             dev, comm, tracker, traj).items():
-        out[name], launches = scale_lockstep(tracker, make, start, frames,
-                                             truth)
+        out[name], launches = scale_lockstep(name, tracker, make, start,
+                                             frames, truth)
         for k in WRAPPERS:
             total[k] += launches[k]
         torch.cuda.synchronize()
@@ -3218,6 +3267,7 @@ def phase_scale(dev, card):
     """One rank under NCCL (the slice, the check against rbcpf_step, two
     scenes, times), then two gloo ranks sharing the card."""
     t0 = time.perf_counter()
+    cdf = cdf_repeatability(dev)
     comm = comm_mod.init_process_group(SCALE_BACKEND, 0, 1,
                                        comm_mod.free_port(),
                                        SCALE_GROUP_TIMEOUT_S, device=dev)
@@ -3238,6 +3288,7 @@ def phase_scale(dev, card):
     one_rank_s = time.perf_counter() - t0
     ranks, two_s = scale_two_ranks(dev)
     emit({"phase": "scale", "nvidia_smi": card,
+          "cdf_differing_calls": cdf,
           "one_rank": {"backend": SCALE_BACKEND, "world": 1,
                        "capture": capture, "particles": P, "frames": FRAMES,
                        "position_rmse_m": rmse, "paths": paths,
@@ -3255,35 +3306,43 @@ def phase_scale(dev, card):
     return launches, graph_launches
 
 
+def stiff_leg(entry):
+    """A copy of a leg of ``jax_reference.json`` whose configuration has
+    both transition sigmas × ``EVAL_POWER_SCALE``: the power check's."""
+    stiff = copy.deepcopy(entry)
+    for k in ("linear_acceleration_sigma", "angular_acceleration_sigma"):
+        stiff["config"]["transition"][k] *= EVAL_POWER_SCALE
+    return stiff
+
+
 def phase_eval(dev, card):
-    """Both sets of the accuracy suite on the card, ``production`` first;
-    one line per set. Returns each kernel's launches over the phase and
-    what failed (a leg over its bound in a metric ``FILED`` does not
-    file for it, a kernel a ``pf-pallas`` leg never launched, the phase
-    over its time), which ``main`` raises on after the kernels line."""
+    """Both sets of the accuracy suite on the card, ``production`` first,
+    one line per set, then the power check: ``EVAL_POWER_LEG`` with its
+    transition's sigmas × ``EVAL_POWER_SCALE`` (a belief too stiff to
+    follow the rotation), which the rule must fail. Returns each
+    kernel's launches over the phase and what failed (a leg that fails
+    its rule, a kernel a ``pf-pallas`` leg never launched, a power check
+    that passes, the phase over its time), which ``main`` raises on after
+    the kernels line."""
     from dbot_ros_tpu_torch.runtime import eval_suite
 
-    keys = ("estimator", "frames", "particles", "seeds", "mean", "sd",
-            "jax_mean", "jax_sd", "bound", "passed", "over_bound",
-            "filed", "seconds")
+    keys = ("estimator", "frames", "particles", "rule", "seeds", "mean",
+            "sd", "jax_mean", "jax_sd", "checks", "over_2cm", "passed",
+            "failed_metrics", "seconds")
     for w in WRAPPERS.values():
         w.launches = 0
     t0 = time.perf_counter()
-    failed, filed = [], []
+    failed, results = [], {}
     for set_name in eval_suite.SETS:
         res = eval_suite.run_set(EVAL_FIXTURES, set_name, dev)
         torch.cuda.empty_cache()
+        results[set_name] = res
         legs = {}
         for name, r in res["legs"].items():
             legs[name] = {k: r[k] for k in keys}
-            miss = eval_suite.unfiled(name, r["over_bound"])
-            if miss:
-                failed.append(f"{name} over its bound in {miss}"
-                              f" (port mean {r['mean']}, bound "
-                              f"{r['bound']})")
-            if r["filed"]:
-                filed.append(f"{name} over its bound in {r['filed']}, "
-                             f"filed in ROADMAP.md §C")
+            if not r["passed"]:
+                failed.append(f"{name} fails its rule in "
+                              f"{r['failed_metrics']} ({r['checks']})")
             if r["estimator"] == "pf-pallas":
                 legs[name]["launches"] = r["launches"]
                 idle = [k for k, n in r["launches"].items() if n == 0]
@@ -3293,12 +3352,32 @@ def phase_eval(dev, card):
               "device": res["device"], "jax_commit": res["jax_commit"],
               "legs_passed": sum(r["passed"] for r in legs.values()),
               "legs": len(legs), "seconds": res["seconds"], "results": legs})
+    ref = eval_suite.load_reference(EVAL_FIXTURES)
+    stiff = stiff_leg(ref["legs"][EVAL_POWER_LEG])
+    power = eval_suite.run_leg(EVAL_FIXTURES, EVAL_POWER_LEG, stiff,
+                               ref["bound_rule"], dev)
+    torch.cuda.empty_cache()
+    if power["passed"]:
+        failed.append(f"power check: {EVAL_POWER_LEG} with its transition "
+                      f"sigmas × {EVAL_POWER_SCALE} passes the rule "
+                      f"({power['checks']})")
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in WRAPPERS.items()}
+    emit({"phase": "eval", "power_check": EVAL_POWER_LEG,
+          "transition": stiff["config"]["transition"],
+          "failed_metrics": power["failed_metrics"],
+          **{k: power[k] for k in ("mean", "sd", "checks", "over_2cm",
+                                   "seconds")},
+          "real_leg": {k: results["eval"]["legs"][EVAL_POWER_LEG][k]
+                       for k in ("mean", "sd", "checks", "over_2cm")}})
     if seconds > EVAL_LIMIT_S:
         failed.append(f"{seconds:.1f} s, over its {EVAL_LIMIT_S:.0f} s")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(EVAL_RESULTS, "w") as fh:
+        json.dump({"nvidia_smi": card, "sets": results, "power_check": power},
+                  fh, indent=1)
     emit({"phase": "eval", "seconds": seconds, "launches": launches,
-          "filed": filed, "failed": failed})
+          "results_file": str(EVAL_RESULTS), "failed": failed})
     return launches, failed
 
 

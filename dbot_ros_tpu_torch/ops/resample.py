@@ -1,9 +1,11 @@
 """Particle weight bookkeeping and resampling.
 
-Port of ``dbot_ros_tpu/ops/resample.py``. All functions take unnormalized
-*log* weights along the last axis. ``torch.searchsorted(side="left")``
-replaces the reference's TPU-only blocked-rank search. Random numbers may
-be passed in (``u``) or are drawn from ``generator``.
+Port of ``dbot_ros_tpu/ops/resample.py``. The functions take unnormalized
+*log* weights along the last axis (:func:`weight_cdf` takes weights).
+``torch.searchsorted(side="left")`` replaces the reference's TPU-only
+blocked-rank search, and :func:`weight_cdf` ``torch.cumsum``, so that the
+CDF is the same bits on every call on the card too. Random numbers may be
+passed in (``u``) or are drawn from ``generator``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,24 @@ def kl_to_uniform(log_w):
             + math.log(float(n)))
 
 
+def weight_cdf(w):
+    """Inclusive cumulative sum of ``w`` along the last axis, the same bits
+    on every call.
+
+    On the card, ``torch.cumsum`` of a tensor that is one row (``numel``
+    equal to the last axis) is a single-pass scan whose tiles take their
+    prefix from whichever earlier tiles have finished: its float32 sums
+    are grouped differently from call to call, and a systematic threshold
+    within rounding of a CDF step then picks the neighbouring parent. A
+    tensor of several rows is scanned a row per thread block, in a fixed
+    order. So a single row is scanned beside a copy of itself (on the CPU
+    both give the sequential sum)."""
+    if w.numel() != w.shape[-1]:
+        return torch.cumsum(w, dim=-1)
+    two = w.reshape(1, -1).expand(2, -1).contiguous()
+    return torch.cumsum(two, dim=-1)[0].reshape(w.shape)
+
+
 def systematic_indices(log_w, num_samples: int, u=None, generator=None):
     """Systematic (low-variance) resampling → sorted parent indices.
 
@@ -41,7 +61,7 @@ def systematic_indices(log_w, num_samples: int, u=None, generator=None):
     thresholds (i + u)/M against the weight CDF.
     """
     ln, _ = normalize_log_weights(log_w)
-    cdf = torch.cumsum(torch.exp(ln), dim=-1)
+    cdf = weight_cdf(torch.exp(ln))
     if u is None:
         u = torch.rand((), generator=generator, device=log_w.device)
     u = torch.as_tensor(u, dtype=torch.float32, device=log_w.device)

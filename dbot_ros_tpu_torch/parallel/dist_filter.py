@@ -74,6 +74,7 @@ import torch.distributed as dist
 from dbot_ros_tpu_torch.filters import rbcpf
 from dbot_ros_tpu_torch.filters.rbcpf import BlockNoise, ParticleBelief
 from dbot_ros_tpu_torch.models.transition import TransitionParams
+from dbot_ros_tpu_torch.ops import resample as rs
 from dbot_ros_tpu_torch.parallel import comm as comm_mod
 from dbot_ros_tpu_torch.utils import graphs
 
@@ -305,7 +306,7 @@ def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
                         states.reshape(p_local, K * 13)], dim=1)
     packed_all = comm.all_gather(packed, tiled=True)
     w_all = packed_all[:, 0].contiguous()
-    cdf = torch.cumsum(w_all, 0)
+    cdf = rs.weight_cdf(w_all)
     total = w_all.shape[0]
     ar = torch.arange(p_local, dtype=torch.float32, device=dev)
     ar_i = torch.arange(p_local, device=dev)
@@ -883,7 +884,7 @@ class _IslandBody:
         # where-select, no host read
         do_l = kl_local > self.max_kl
         p_rs = torch.clamp(torch.searchsorted(
-            torch.cumsum(w_loc, 0), (ar + u) / p_local, side="left"),
+            rs.weight_cdf(w_loc), (ar + u) / p_local, side="left"),
             0, p_local - 1)
         parents = torch.where(do_l, p_rs, ar_i)
         return (states.index_select(0, parents), self.gather(occ, parents),
@@ -911,7 +912,7 @@ class _IslandBody:
         idx, n_islands = comm.rank, comm.size
         if exchange:
             bn_all = comm.all_gather(bn)                         # (S,)
-            cdf = torch.cumsum(torch.exp(bn_all), 0)
+            cdf = rs.weight_cdf(torch.exp(bn_all))
             pos = ((torch.full((), float(idx), device=bn.device)
                     + island_u) / n_islands)
             src = torch.clamp(torch.searchsorted(cdf, pos[None],

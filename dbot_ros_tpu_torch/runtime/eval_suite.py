@@ -5,16 +5,25 @@ accuracy leg (``benchmarks/tpu_session26.py``, with the Gaussian tracker
 of ``tpu_session30.py``). The frames come from ``tests/fixtures/
 torch_eval/``, which ``tests/torch_eval_reference.py`` renders with the
 JAX package's ``OracleSource``; its ``jax_reference.json`` holds, per
-leg, the tracker configuration, the JAX tracker's metrics on the same
-frames over tracker seeds, their mean and spread, and the bound the port
-is held to. The port's random streams cannot match JAX's, so a leg is
-judged on statistics over the same seeds:
+leg, the tracker configuration and the JAX tracker's metrics on the same
+frames for each tracker seed, and ``bound_rule``, the rule the port is
+held to (this module keeps no copy of its numbers). The port's random
+streams cannot match JAX's, so a leg is judged on samples over the same
+seeds, per metric (position RMSE, rotation RMSE, ``two_obj``'s object 1
+modulo the box's symmetry group, and the worst position error over
+frames ≥ F//3):
 
-* the port's mean position RMSE ≤ ``jax_mean + max(3·jax_sd, 1 mm)``;
-* the mean rotation RMSE ≤ ``jax_mean + max(3·jax_sd, 0.02 rad)``
-  (``two_obj``: object 1, a box, modulo its symmetry group);
-* the mean worst position error over frames ≥ F//3 ≤ 2 cm wherever the
-  JAX mean is under it.
+* particle-filter legs (``two_sample``), seeds 1-10 a side: a one-sided
+  Welch test of non-inferiority. The leg fails a metric when
+  ``mean_p − mean_j > δ + T·sqrt(s_p²/n_p + s_j²/n_j)``, T the 0.999
+  quantile of Student's t at 9 degrees of freedom; each leg also reports
+  how many seeds of each side go over 2 cm in the worst error;
+* Gaussian legs (``deterministic``: JAX's spread is 0), seeds 1-3: the
+  port's mean ≤ JAX's + a floor, and the worst error ≤ 2 cm where JAX's
+  mean is under it.
+
+Per metric a judged leg gives ``diff`` (mean_p − mean_j), ``threshold``
+(what ``diff`` may reach) and ``slack`` (threshold − diff).
 
 Each run streams one fixture through ``runtime.sources.ReplaySource`` and
 ``runtime.node.run`` from frame 0's ground truth, with a tracker built
@@ -25,18 +34,11 @@ run and count nothing).
 Run: ``python -m dbot_ros_tpu_torch.runtime.eval_suite --fixtures
 tests/fixtures/torch_eval [--set eval|production] [--device cuda|cpu]
 [--out results.json] [--legs L,...] [--seeds A-B]``. The card is the
-default device and the trackers run captured (``capture=None``), as
-users run them; without CUDA it raises unless given ``--device cpu``.
-The ``production`` set (the full-width main path) runs first, then
-``eval``. It exits 1 if a leg is over its bound, a leg of ``FILED``
-too. With ``--seeds`` other than 1-3 it judges no leg (the bound holds
-the mean over seeds 1-3): it prints the means and spreads and exits 0.
-
-``FILED`` names the legs that miss their bound for a cause that was
-chased and written down (``ROADMAP.md`` §C), with the metrics they miss.
-They are judged and reported over their bound like any other leg;
-``unfiled`` gives the misses that are not filed, which fail
-``chip_smoke.py``'s ``eval`` phase.
+default device and the trackers run captured, as users run them; without
+CUDA it raises unless given ``--device cpu``. The ``production`` set
+(the full-width main path) runs first, then ``eval``. It exits 1 if a
+leg fails its rule. A leg run over other seeds than its rule's is not
+judged: it prints the means and spreads, and that leg fails nothing.
 """
 
 from __future__ import annotations
@@ -61,17 +63,7 @@ from dbot_ros_tpu_torch.utils.camera import make_camera
 from dbot_ros_tpu_torch.utils.mesh import box_mesh, l_shape_mesh
 
 SETS = ("production", "eval")
-# the port's seeds on every leg: the bound holds its mean over these (a
-# JAX leg that took over a minute a run ran seed 1 only, its spread
-# pooled from the estimator's other legs)
-SEEDS = (1, 2, 3)
 METRICS = ("pos_rmse_m", "rot_rmse_rad", "pos_max_m")
-# legs over their bound on the card, and the metrics each misses, whose
-# cause is filed in ROADMAP.md §C (Open 1): fed JAX's draws the port's
-# step is JAX's on these frames, and over 13 JAX and 20 port seeds the
-# two agree; the three JAX seeds of the bound happened to cluster
-FILED = {"eval/nominal/pf-xla": ("pos_rmse_m", "rot_rmse_rad"),
-         "production/occluder/pf-pallas": ("pos_max_m",)}
 MESHES = {"l_shape": l_shape_mesh,
           "box(0.05, 0.07, 0.03)": lambda: box_mesh(0.05, 0.07, 0.03)}
 
@@ -125,28 +117,56 @@ def run_metrics(run: node.TrackRun, scenario: str) -> dict:
     return rec
 
 
-def judge(mean: dict, bound: dict) -> list:
-    """The metrics of ``mean`` over their bound (an empty list: within)."""
-    return [k for k in METRICS
-            if bound.get(k) is not None and not mean[k] <= bound[k]]
+def _sample(runs, k):
+    return np.array([r[k] for r in runs], np.float64)
 
 
-def unfiled(name: str, over: list) -> list:
-    """The metrics of ``over`` (leg ``name``'s ``over_bound``) that
-    ``FILED`` does not file for that leg."""
-    return [k for k in over if k not in FILED.get(name, ())]
+def judge(rule_name: str, rule: dict, runs: list, jax_runs: list) -> dict:
+    """Per metric, the port's ``runs`` against JAX's ``jax_runs`` under
+    ``bound_rule[rule_name]``: ``{"diff", "threshold", "slack",
+    "failed"}`` (``threshold`` None where the rule sets none).
+    ``two_sample`` needs the rule's number of seeds on each side and a
+    spread on each: it raises rather than judge without them."""
+    checks = {}
+    for k in METRICS:
+        p, j = _sample(runs, k), _sample(jax_runs, k)
+        diff = float(p.mean() - j.mean())
+        if rule_name == "two_sample":
+            n = len(rule["seeds"])
+            if len(p) != n or len(j) != n:
+                raise ValueError(f"{k}: the rule needs {n} seeds a side, "
+                                 f"got {len(p)} and {len(j)}")
+            sp, sj = p.std(ddof=1), j.std(ddof=1)
+            if not (sp > 0 and sj > 0):
+                raise ValueError(f"{k}: a sample without spread (sd "
+                                 f"{sp:g} and {sj:g}) cannot be judged")
+            threshold = float(rule["margin"][k] + rule["t"] * np.sqrt(
+                sp ** 2 / len(p) + sj ** 2 / len(j)))
+            failed = diff > threshold
+        elif k in rule["floor"] or j.mean() < rule["pos_max_limit_m"]:
+            bound = (j.mean() + rule["floor"][k] if k in rule["floor"]
+                     else rule["pos_max_limit_m"])
+            threshold, failed = float(bound - j.mean()), not p.mean() <= bound
+        else:
+            threshold, failed = None, False
+        checks[k] = {"diff": diff, "threshold": threshold,
+                     "slack": None if threshold is None else threshold - diff,
+                     "failed": bool(failed)}
+    return checks
 
 
-def run_leg(fixtures, name: str, ref: dict, device, seeds=SEEDS) -> dict:
-    """One leg over ``seeds`` → the port's runs, mean and spread beside
-    the JAX ones, the bound, whether the leg is within it, and which of
-    the metrics over it are filed (``FILED``). The bound holds the mean
-    over ``SEEDS``: over other seeds the leg is not judged (``passed``,
-    ``over_bound`` and ``filed`` None)."""
+def run_leg(fixtures, name: str, ref: dict, rules: dict, device,
+            seeds=None) -> dict:
+    """One leg over ``seeds`` (None: its rule's) → the port's runs, mean
+    and spread beside the JAX ones, and per metric the rule's judgement
+    (``rules``: ``jax_reference.json``'s ``bound_rule``). Over other
+    seeds than the rule's the leg is not judged (``checks``, ``passed``
+    and ``failed_metrics`` None)."""
     set_name, scenario, _ = name.split("/")
     path = Path(fixtures) / set_name / f"{scenario}.npz"
     camera = fixture_camera(path, device)
-    seeds = list(seeds)
+    rule = rules[ref["rule"]]
+    seeds = list(rule["seeds"] if seeds is None else seeds)
     before = {k: w.launches for k, w in kernels.WRAPPERS.items()}
     t0 = time.perf_counter()
     runs = []
@@ -156,31 +176,38 @@ def run_leg(fixtures, name: str, ref: dict, device, seeds=SEEDS) -> dict:
         runs.append({"seed": seed, **run_metrics(run, scenario)})
         del tracker
     seconds = time.perf_counter() - t0
-    mean = {k: float(np.mean([r[k] for r in runs])) for k in METRICS}
-    sd = {k: (float(np.std([r[k] for r in runs], ddof=1))
-              if len(runs) > 1 else None) for k in METRICS}
-    over = judge(mean, ref["bound"]) if seeds == list(SEEDS) else None
+    jax_runs = [{k: r[k] for k in ("seed", *METRICS)} for r in ref["runs"]]
+    checks = (judge(ref["rule"], rule, runs, jax_runs)
+              if seeds == rule["seeds"] else None)
+    failed = None if checks is None else [k for k in METRICS
+                                          if checks[k]["failed"]]
+    limit = rule.get("report_over_m")
     return {"set": set_name, "scenario": scenario,
             "estimator": ref["estimator"], "frames": ref["frames"],
-            "particles": ref["particles"], "seeds": seeds, "runs": runs,
-            "mean": mean, "sd": sd,
+            "particles": ref["particles"], "rule": ref["rule"],
+            "seeds": seeds, "runs": runs, "jax_runs": jax_runs,
+            "mean": {k: float(_sample(runs, k).mean()) for k in METRICS},
+            "sd": {k: (float(_sample(runs, k).std(ddof=1))
+                       if len(runs) > 1 else None) for k in METRICS},
             "jax_mean": {k: ref["mean"][k] for k in METRICS},
             "jax_sd": {k: ref["sd"][k] for k in METRICS},
-            "bound": ref["bound"], "over_bound": over,
-            "passed": None if over is None else not over,
-            "filed": (None if over is None else
-                      [k for k in over if k in FILED.get(name, ())]),
+            "checks": checks,
+            "over_2cm": (None if limit is None else {
+                side: int((_sample(rs, "pos_max_m") > limit).sum())
+                for side, rs in (("port", runs), ("jax", jax_runs))}),
+            "passed": None if failed is None else not failed,
+            "failed_metrics": failed,
             "launches": {k: w.launches - before[k]
                          for k, w in kernels.WRAPPERS.items()},
             "seconds": seconds}
 
 
-def run_set(fixtures, set_name: str, device=None, legs=None, seeds=SEEDS,
+def run_set(fixtures, set_name: str, device=None, legs=None, seeds=None,
             on_leg=None) -> dict:
     """Every leg of ``set_name`` (or only those named in ``legs``) →
-    ``{"legs": {name: result}, "passed", "seconds"}`` (``passed`` None
-    over other seeds than ``SEEDS``). ``device`` None is the card;
-    ``on_leg(name, result)`` is called after each leg."""
+    ``{"legs": {name: result}, "passed", "seconds"}`` (``passed`` False
+    if a leg failed, else None if a leg was not judged). ``device`` None
+    is the card; ``on_leg(name, result)`` is called after each leg."""
     device = resolve_device(device)
     ref = load_reference(fixtures)
     t0 = time.perf_counter()
@@ -189,13 +216,15 @@ def run_set(fixtures, set_name: str, device=None, legs=None, seeds=SEEDS,
         if entry["set"] != set_name or (legs is not None
                                         and name not in legs):
             continue
-        out[name] = run_leg(fixtures, name, entry, device, seeds)
+        out[name] = run_leg(fixtures, name, entry, ref["bound_rule"],
+                            device, seeds)
         if on_leg is not None:
             on_leg(name, out[name])
+    verdicts = [r["passed"] for r in out.values()]
     return {"set": set_name, "device": str(device),
             "jax_commit": ref["jax_commit"], "legs": out,
-            "passed": (None if list(seeds) != list(SEEDS) else
-                       all(r["passed"] for r in out.values())),
+            "passed": (False if False in verdicts else
+                       None if None in verdicts else True),
             "seconds": time.perf_counter() - t0}
 
 
@@ -210,13 +239,18 @@ def _fmt(x):
 
 def _show(name, r):
     verdict = ("not judged" if r["passed"] is None else "ok"
-               if r["passed"] else "OVER " + ",".join(r["over_bound"])
-               + (" (filed: " + ",".join(r["filed"]) + ")"
-                  if r["filed"] else ""))
-    print(f"{name:32s} pos {_fmt(r['mean']['pos_rmse_m'])} (bound "
-          f"{_fmt(r['bound']['pos_rmse_m'])})  rot "
-          f"{_fmt(r['mean']['rot_rmse_rad'])} (bound "
-          f"{_fmt(r['bound']['rot_rmse_rad'])})  {verdict}  "
+               if r["passed"] else "FAILS " + ",".join(r["failed_metrics"]))
+    parts = []
+    for k, label in (("pos_rmse_m", "pos"), ("rot_rmse_rad", "rot"),
+                     ("pos_max_m", "max")):
+        c = (r["checks"] or {}).get(k, {})
+        parts.append(f"{label} {_fmt(r['mean'][k])} (JAX "
+                     f"{_fmt(r['jax_mean'][k])}, slack "
+                     f"{_fmt(c.get('slack'))})")
+    over = ("" if r["over_2cm"] is None else
+            f"  over 2 cm: port {r['over_2cm']['port']}, JAX "
+            f"{r['over_2cm']['jax']}")
+    print(f"{name:32s} " + "  ".join(parts) + f"{over}  {verdict}  "
           f"{r['seconds']:.1f} s", flush=True)
 
 
@@ -235,11 +269,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="write the results as JSON here")
     ap.add_argument("--legs", type=lambda s: s.split(","),
                     help="only these legs (set/scenario/estimator,...)")
-    ap.add_argument("--seeds", type=_seed_range, default=SEEDS,
-                    help="tracker seeds A-B in place of 1-3 (a leg's "
-                         "spread over more seeds than the bound's): "
-                         "prints means and spreads, judges no leg and "
-                         "exits 0")
+    ap.add_argument("--seeds", type=_seed_range,
+                    help="tracker seeds A-B in place of each leg's rule's "
+                         "(a leg's spread over other seeds): a leg whose "
+                         "rule has other seeds is not judged")
     args = ap.parse_args(argv)
 
     results = {}

@@ -31,6 +31,10 @@ host, lives in the named buffers, a graph's pool memory is only ever read
 by that graph, and one pool is safe for graphs replayed one after another
 in any order, whatever order they were captured in.
 
+Python's cyclic garbage collector is off while a graph is recorded: a
+collection then could free a dead program's graphs, and destroying a
+graph while a stream captures invalidates the capture.
+
 Without capture (the CPU, and ``capture=False`` on the card: the
 counterpart of ``jax.disable_jit``) the same functions run eagerly through
 the same buffers. ``capture=True`` on the CPU raises, and so does a
@@ -42,7 +46,10 @@ function as the one graph of a program of its own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import threading
 import time
 from typing import Callable, Dict, Hashable, Optional
 
@@ -68,6 +75,30 @@ def resolve_capture(device, capture=None) -> bool:
         raise ValueError(f"capture=True needs a CUDA device, got {device}: "
                          "CUDA graphs exist only on the card")
     return bool(capture)
+
+
+_collector = {"captures": 0, "was_enabled": False}
+_collector_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic garbage collector off for the block, and back as it was
+    once no thread records a graph any more (captures in two threads
+    overlap: a source's render and a tracker's step). What died meanwhile
+    is collected after."""
+    with _collector_lock:
+        if _collector["captures"] == 0:
+            _collector["was_enabled"] = gc.isenabled()
+        _collector["captures"] += 1
+        gc.disable()
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector["captures"] -= 1
+            if _collector["captures"] == 0 and _collector["was_enabled"]:
+                gc.enable()
 
 
 def _get(obj, key):
@@ -231,8 +262,9 @@ class StepProgram:
         graph = torch.cuda.CUDAGraph()
         self._capturing = True
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with _no_collection(), torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 captured = fn()
         except Exception as e:
             raise RuntimeError(f"capturing the step's graph {key!r} failed "

@@ -23,6 +23,8 @@ service) runs once, short, with the kernels counted per frame.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -31,7 +33,8 @@ import torch
 from dbot_ros_tpu_torch.models import beam, occlusion
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
 from dbot_ros_tpu_torch.ops import kernels, raycast
-from dbot_ros_tpu_torch.utils import camera, mesh, se3
+from dbot_ros_tpu_torch.ops import resample as rs
+from dbot_ros_tpu_torch.utils import camera, graphs, mesh, se3
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -384,6 +387,31 @@ def test_gather_rows_edges(cuda, dtype, row_bytes):
                     assert got.shape == (n_sel, width)
                     assert torch.equal(got.view(torch.uint8),
                                        want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("n", [10_000, 100_000])
+def test_weight_cdf_is_the_same_bits_on_every_call(cuda, n):
+    """The resampling CDF repeats to the bit while another stream keeps
+    the card busy (a one-row ``torch.cumsum`` does not: its single-pass
+    scan groups the sums by which tiles finished first), and it is the
+    cumulative sum to float32 rounding."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    w = torch.softmax(3.0 * torch.randn(n, generator=g, device=cuda), 0)
+    first = rs.weight_cdf(w).clone()
+    busy, side = torch.randn(2048, 2048, device=cuda), torch.cuda.Stream()
+    differ = 0
+    for i in range(2000):
+        if i % 8 == 0:
+            with torch.cuda.stream(side):
+                busy @ busy
+        differ += int(not torch.equal(rs.weight_cdf(w).view(torch.int32),
+                                      first.view(torch.int32)))
+    torch.cuda.synchronize()
+    assert differ == 0
+    want = np.cumsum(w.double().cpu().numpy())
+    np.testing.assert_allclose(first.cpu().numpy(), want, rtol=0,
+                               atol=1e-5)
 
 
 def test_lineage_gather_matches_plain_and_checks_its_arguments(cuda):
@@ -816,7 +844,6 @@ def test_captured_step_outputs_outlive_the_next_step(cuda, nccl_one_rank,
     donated (the same buffers every frame)."""
     from dbot_ros_tpu_torch import config as cfg
     from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
-    from dbot_ros_tpu_torch.utils import graphs
 
     cam, meshes, frames = graph_scene(1)
     conf = cfg.ParticleTrackerConfig(
@@ -866,6 +893,50 @@ def test_captured_step_outputs_outlive_the_next_step(cuda, nccl_one_rank,
              else [prog_step.program])
     assert all(p.capture for p in progs)
     assert sum(p.graph_count for p in progs) >= 2
+
+
+def test_a_program_that_dies_during_a_capture_is_not_freed_in_it(cuda):
+    """A captured program in a reference cycle dies while another program
+    records its graph, and the capture allocates enough long-lived
+    objects to set off a full collection: the dead program (its graph
+    with it) is freed after the capture, not inside it (which would
+    invalidate the capture), and the graph replays right."""
+    def program(value):
+        prog = graphs.StepProgram(cuda, capture=True)
+        x = prog.keep("x", torch.full((4,), value, device=cuda))
+        prog.run("k", lambda: prog.keep("y", x * 2))
+        prog.cycle = prog                     # only a collection frees it
+        return prog
+
+    held = [program(1.0)]
+    freed_capturing = []
+    weakref.finalize(held[0], lambda: freed_capturing.append(
+        torch.cuda.is_current_stream_capturing()))
+    gc.collect()
+    # the oldest generation is collected once the objects promoted into
+    # it since the last full collection reach a quarter of its size
+    junk_count = len(gc.get_objects())
+    prog = graphs.StepProgram(cuda, capture=True)
+    x = prog.keep("x", torch.arange(4.0, device=cuda))
+    calls, junk = [], []
+
+    def fn():
+        calls.append(len(calls))
+        if len(calls) == 2:                   # the capture
+            held.clear()
+            junk.extend([] for _ in range(junk_count))
+        return prog.keep("y", x + 1)
+
+    first = prog.run("k", fn).clone()
+    x.fill_(5.0)
+    again = prog.run("k", fn)
+    torch.cuda.synchronize()
+    junk.clear()
+    gc.collect()
+    assert calls == [0, 1] and prog.graph_count == 1
+    assert freed_capturing == [False]
+    assert torch.equal(first, torch.arange(1.0, 5.0, device=cuda))
+    assert torch.equal(again, torch.full((4,), 6.0, device=cuda))
 
 
 @pytest.mark.parametrize("kind", ["synthetic", "oracle"])

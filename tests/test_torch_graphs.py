@@ -32,6 +32,8 @@ The CUDA graphs themselves are held against the eager step on the card
 import contextlib
 import dataclasses
 import datetime
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -713,6 +715,69 @@ def test_a_failed_capture_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="capturing the step's graph"):
             prog.run("step", lambda: prog.keep("out", torch.ones(2)))
     assert prog.graph_count == 0
+
+
+def test_the_collector_is_off_while_a_graph_is_recorded(monkeypatch):
+    """A collection during a capture could free a dead program's graphs,
+    and destroying a graph while a stream captures invalidates the
+    capture: the collector is off for the capture (not for the eager
+    first call) and back as it was after it, after a failed capture too;
+    one that was off stays off."""
+    stand_in_cuda(monkeypatch)
+    seen = []
+    prog = graphs.StepProgram("cpu")
+
+    def fn():
+        seen.append(gc.isenabled())
+        return prog.keep("out", torch.ones(2))
+
+    assert gc.isenabled()
+    prog.run("step", fn)
+    prog.run("step", fn)                        # a replay runs no Python
+    assert seen == [True, False] and gc.isenabled()
+
+    @contextlib.contextmanager
+    def refusing(*a, **k):
+        yield
+        raise RuntimeError("operation failed due to a previous error "
+                           "during capture")
+
+    monkeypatch.setattr(torch.cuda, "graph", refusing)
+    with pytest.raises(RuntimeError, match="capturing the step's graph"):
+        prog.run("refused", fn)
+    assert seen[-1] is False and gc.isenabled()
+    gc.disable()
+    try:
+        with pytest.raises(RuntimeError):
+            prog.run("off", fn)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("guarded", [True, False])
+def test_no_collection_holds_a_dying_cycle_until_the_block_ends(guarded):
+    """What the `gpu` test of a program dying mid-capture relies on: a
+    cycle that dies in a block which then allocates as many containers as
+    the collector tracks is freed inside the block (a full collection
+    runs there), and under ``_no_collection`` only after it."""
+    class Node:
+        pass
+
+    held = [Node()]
+    held[0].cycle = held[0]
+    inside, freed_inside = [False], []
+    weakref.finalize(held[0], lambda: freed_inside.append(inside[0]))
+    gc.collect()
+    count = len(gc.get_objects())
+    with graphs._no_collection() if guarded else contextlib.nullcontext():
+        inside[0] = True
+        held.clear()
+        junk = [[] for _ in range(count)]
+        inside[0] = False
+    del junk
+    gc.collect()
+    assert freed_inside == [not guarded]
 
 
 def test_comm_byte_counts_survive_replays(monkeypatch, one_rank):

@@ -168,6 +168,20 @@ def test_systematic_indices_with_injected_u_match_jax(spread):
             assert abs(pos[i] - edge) < 1e-6, (pos[i], edge)
 
 
+@pytest.mark.parametrize("shape", [(1,), (500,), (10_000,), (1, 500),
+                                   (3, 50)])
+def test_weight_cdf_is_the_sequential_cumsum(shape):
+    """``weight_cdf`` scans a single row beside a copy of itself (on the
+    card, a fixed order of additions); on the CPU that is ``torch.cumsum``
+    bit for bit, whatever the shape, and the shape is kept."""
+    w = torch.softmax(t(3.0 * np.random.default_rng(6).standard_normal(
+        shape).astype(np.float32)), dim=-1)
+    got = rs.weight_cdf(w)
+    assert got.shape == w.shape
+    assert torch.equal(got.view(torch.int32),
+                       torch.cumsum(w, dim=-1).view(torch.int32))
+
+
 def test_multinomial_indices_follow_weights():
     w = np.array([0.1, 0.0, 0.6, 0.3], np.float32)
     lw = np.full(4, -np.inf, np.float32)
