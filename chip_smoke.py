@@ -132,7 +132,11 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    poses and at the particle chunk; the batched step over 4 scenes as
    its JAX callers jit it (``graphs.compiled``, beliefs donated),
    captured against eager over 4 frames bit for bit, ms per step and per
-   scene of both in turns (captured, eager, eager, captured);
+   scene of both in turns (captured, eager, eager, captured); one
+   re-anchor (``node.run``'s gap rule) on a frame 150 dropped frames
+   after the last tracked: its ms, the error before and after it, and
+   the tracked pose, which must be within 1 cm and nearer than the same
+   belief's propagated over the damping time;
 11. rgf_cli: ``record --trajectory teleport`` then ``track --auto-init
    --watchdog --checkpoint`` with a Gaussian config: the watchdog trips
    after the jump at frame 12, the re-init races at least two
@@ -160,10 +164,18 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    Checks: every tracked frame launched the four kernels; skipped plus
    tracked frames equal the last index; the pause held; the service
    applied every command without an error; ``reinit_frames`` holds the
-   search's frame; the last 30 tracked frames within 1 cm; the
-   checkpoint loads, restores and tracks. Prints ``track`` median and
-   p90, frames dropped in all, in the pause and in the search, the
-   search's seconds, render and conversion ms, ms from push to pose;
+   search's frame; the last 30 tracked frames within 1 cm, and so every
+   tracked frame from the search's on; the first frames after the search
+   and after the pause (each more than the damping time after the frame
+   before it) re-anchored (``TrackRun.reanchors``, the gap rule of
+   ``runtime/node.py``); the checkpoint loads, restores and tracks the
+   frame the loop went on with after it, over its real interval from the
+   saved frame (the last tracked before the command applied).
+   Prints ``track`` median and p90, frames dropped in all, in the pause
+   and in the search, the search's seconds, per re-anchor its frame,
+   frames dropped, ms, and the error of the stale pose and of the placed
+   one against that frame's truth, render and conversion ms, ms from
+   push to pose;
 14. scale: the distributed filter (``dbot_ros_tpu_torch.parallel``).
    One rank under NCCL on the card, every step captured (CUDA-graph
    replays, NCCL collectives inside the graphs):
@@ -281,7 +293,9 @@ from dbot_ros_tpu_torch.ops import resample
 from dbot_ros_tpu_torch.ops import slack as slack_mod
 from dbot_ros_tpu_torch.parallel import comm as comm_mod
 from dbot_ros_tpu_torch.parallel import dist_filter, dryrun
-from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
+from dbot_ros_tpu_torch.runtime import (checkpoint, cli, initializer, node,
+                                        sources)
+from dbot_ros_tpu_torch.runtime.service import TrackerService
 from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.trackers.gaussian import GaussianTracker
 from dbot_ros_tpu_torch.trackers.particle import ParticleTracker
@@ -345,6 +359,8 @@ RENDER_FLIP_SHARE, RENDER_DEPTH_ATOL = 0.002, 1e-5
 # with the exact inside-test, and on a tracked frame's (8 mm) with the
 # tracker's own renderer (0.525 and 0.88 when these were set)
 COVERAGE_FRAME0, COVERAGE_STEADY = 0.45, 0.80
+# the rgf phase's gap: what a 5 s search drops at 30 Hz
+RGF_GAP_SKIPPED = 150
 DEFERRED_FRAMES = 20
 BATCHED_SCENES = 4
 BATCHED_FRAMES = 4
@@ -2363,6 +2379,48 @@ def batched_step_ms(dev, cam, mesh, traj):
     return out
 
 
+def rgf_reanchor(dev, tracker, mesh, traj):
+    """One re-anchor of the Gaussian tracker at the slice's width: the
+    tracker (last tracked on frame ``FRAMES``) gets frame ``FRAMES +
+    RGF_GAP_SKIPPED + 1``, reporting the frames between as dropped, as a
+    push source reports a 5 s search's (``node.run``'s gap rule), and the
+    same belief propagated over the damping time tracks that frame too.
+    The tracked pose must be within ``RMSE_LIMIT_M`` and nearer than the
+    capped propagation's; the ms are the process's first Gaussian
+    re-anchor's."""
+    t = FRAMES + RGF_GAP_SKIPPED + 1
+    truth = traj(t)
+    depth = sources.SyntheticSource([mesh], tracker.camera, traj, 1,
+                                    seed=SEED).render(
+        torch.as_tensor(truth, device=dev)).cpu()
+    saved = dataclasses.replace(tracker.belief, **{
+        f.name: getattr(tracker.belief, f.name).clone()
+        for f in dataclasses.fields(tracker.belief)
+        if getattr(tracker.belief, f.name) is not None})
+    run = node.run(tracker, [sources.Frame(t, depth, truth,
+                                           skipped=RGF_GAP_SKIPPED)])
+    check([r.frame for r in run.reanchors] == [t],
+          f"rgf: frame {t} after {RGF_GAP_SKIPPED} dropped frames was not "
+          f"re-anchored ({run.reanchors}, {run.unanchored_frames})")
+    r = run.reanchors[0]
+    tracker.restore(saved)
+    capped, _ = tracker.track(depth, dt=0.25)
+
+    def err(poses):
+        return float(np.linalg.norm(
+            np.asarray(poses, np.float32).reshape(-1, 7)[0, :3]
+            - truth[0, :3]))
+
+    out = {"frame": t, "skipped": RGF_GAP_SKIPPED, "ms": 1e3 * r.seconds,
+           "error_before_m": err(r.before), "error_after_m": err(r.after),
+           "tracked_error_m": err(run.poses[0]),
+           "capped_error_m": err(capped.cpu())}
+    check(out["tracked_error_m"] < RMSE_LIMIT_M
+          and out["tracked_error_m"] < out["capped_error_m"],
+          f"rgf: the re-anchored frame: {out}")
+    return out
+
+
 def phase_rgf(dev):
     """The Gaussian tracker at the slice's width (see the module
     docstring)."""
@@ -2414,6 +2472,7 @@ def phase_rgf(dev):
                                             RGF_PROFILE_TABLE)
     res["six"]["profile"] = profile_steps(trackers["six"], depth,
                                           RGF6_PROFILE_TABLE)
+    reanchor = rgf_reanchor(dev, trackers["three"], mesh, traj)
     del trackers, tracker
 
     chunk = sensor_chunk(dev, cam)
@@ -2424,6 +2483,7 @@ def phase_rgf(dev):
           "six_iterations": {"trust_sigma": 1.5, **res["six"],
                              "track_ms_ratio_to_three": ratio},
           "steady_state_coverage": coverage,
+          "reanchor": reanchor,
           "card_vs_cpu": rgf_against_cpu(dev, cam, mesh, traj),
           "select": select_times(dev, cam, mesh, traj,
                                  ((25, 6), (chunk, 4))),
@@ -2548,13 +2608,34 @@ def render_live_frames(dev, cam, mesh, traj):
     return frames, native_cam, render_ms, u16_ms, eager_ms
 
 
+class NotedService(TrackerService):
+    """A ``TrackerService`` that notes, for each command it applies, the
+    last frame tracked before it and the frame it was applied before: a
+    checkpoint saves the first one's belief, and the loop goes on with
+    the second (a client's ``status`` after the command may already show
+    a later frame)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.applied_between = {}
+
+    def apply_pending(self, tracker, frame, reinit_kwargs=None):
+        st = self.status()
+        stop = super().apply_pending(tracker, frame, reinit_kwargs)
+        for seq in range(st["applied_seq"] + 1,
+                         self.status()["applied_seq"] + 1):
+            self.applied_between[seq] = (st["frame"], int(frame.index))
+        return stop
+
+
 def live_client(sock, traj, ckpt, frames_left, log):
     """The operator: status, pause ~0.3 s and resume, checkpoint,
     reset_pose to the current ground truth, find_object near frame
-    ``LIVE_FIND_FRAME``, then shutdown at frame ``LIVE_SHUTDOWN_FRAME`` or
-    when the camera has at most ``LIVE_SHUTDOWN_MARGIN`` frames left to
-    send, whichever comes first; every call through the socket, with
-    timeouts. Writes what it saw into ``log``."""
+    ``LIVE_FIND_FRAME``, then, once a frame after the search was tracked,
+    shutdown at frame ``LIVE_SHUTDOWN_FRAME`` or when the camera has at
+    most ``LIVE_SHUTDOWN_MARGIN`` frames left to send, whichever comes
+    first; every call through the socket, with timeouts. Writes what it
+    saw into ``log``."""
     from dbot_ros_tpu_torch.runtime.service import call
 
     deadline = time.time() + LIVE_CLIENT_TIMEOUT_S
@@ -2598,7 +2679,8 @@ def live_client(sock, traj, ckpt, frames_left, log):
         log["pause"] = {"frame": first["frame"], "paused": held["paused"],
                         "frame_after_hold": held["frame"]}
         wait_frame(held["frame"] + 1)
-        seq = queued({"cmd": "checkpoint", "path": ckpt})
+        seq = log["checkpoint_seq"] = queued({"cmd": "checkpoint",
+                                              "path": ckpt})
         log["checkpoint_frame"] = wait_applied(seq)["frame"]
         st = wait_frame(log["checkpoint_frame"] + 10)
         seq = queued({"cmd": "reset_pose",
@@ -2606,10 +2688,14 @@ def live_client(sock, traj, ckpt, frames_left, log):
         log["reset_frame"] = wait_applied(seq)["frame"]
         wait_frame(LIVE_FIND_FRAME)
         seq = queued({"cmd": "find_object"})
-        wait_applied(seq)
-        st = wait_for(lambda st: st["frame"] >= LIVE_SHUTDOWN_FRAME
-                      or frames_left() <= LIVE_SHUTDOWN_MARGIN,
-                      "no frame to shut down on")
+        searched = wait_applied(seq)["reinit_frames"][-1]
+        # a frame after the search is tracked first: its re-anchor is
+        # checked (a search that ends near the stream's end would let the
+        # shutdown in before it)
+        st = wait_for(lambda st: st["frame"] > searched and (
+            st["frame"] >= LIVE_SHUTDOWN_FRAME
+            or frames_left() <= LIVE_SHUTDOWN_MARGIN),
+            "no frame after the search to shut down on")
         log["shutdown_sent_at"] = {"frame": st["frame"],
                                    "frames_left": frames_left()}
         queued({"cmd": "shutdown"})
@@ -2629,8 +2715,6 @@ def phase_live(dev, card):
 
 
 def live_in(dev, card, tmp):
-    from dbot_ros_tpu_torch.runtime.service import TrackerService
-
     cam, mesh, traj = slice_scene()
     frames, native_cam, render_ms, u16_ms, eager_ms = render_live_frames(
         dev, cam, mesh, traj)
@@ -2642,14 +2726,17 @@ def live_in(dev, card, tmp):
 
     tracker = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
                               device=dev)
-    # warm up (a live camera does not wait), then start from the truth
+    # warm up the step and the re-anchor (a live camera does not wait; a
+    # process's first re-anchor also loads its kernels: 0.15-0.25 s more on
+    # an H100), then start from the truth
     tracker.initialize(frames[0].ground_truth)
     for _ in range(3):
         tracker.track(frames[0].depth)
+    initializer.reanchor_tracker(tracker, frames[0].depth)
     tracker.initialize(frames[0].ground_truth)
 
     sock, ckpt = str(tmp / "c.sock"), str(tmp / "belief.npz")
-    service = TrackerService(sock)
+    service = NotedService(sock)
     src = StampedSource(frames, rate_hz=LIVE_RATE_HZ, capacity=LIVE_CAPACITY)
     per_frame, posed_at, log = [], {}, {}
 
@@ -2701,27 +2788,55 @@ def live_in(dev, card, tmp):
     err = np.linalg.norm(run.poses[:, 0, :3] - run.ground_truth[:, 0, :3],
                          axis=1)
     check(np.all(np.isfinite(run.poses)), "non-finite pose")
+    since_search = np.array([f >= reinit[0] for f in tracked])
+    trace = ("(frame, skipped, error mm, hypotheses, ESS) from the search "
+             "on: " + json.dumps([
+                 (m.frame, m.skipped, round(1e3 * float(e), 2),
+                  m.trial_hypotheses, m.ess and round(m.ess))
+                 for m, e in zip(run.metrics.records, err)
+                 if m.frame >= reinit[0]]))
     check(err[-LIVE_LAST_FRAMES:].max() < RMSE_LIMIT_M,
           f"last {LIVE_LAST_FRAMES} frames up to "
-          f"{err[-LIVE_LAST_FRAMES:].max()} m off; (frame, skipped, error "
-          "mm, hypotheses, ESS) from the search on: " + json.dumps([
-              (m.frame, m.skipped, round(1e3 * float(e), 2),
-               m.trial_hypotheses, m.ess and round(m.ess))
-              for m, e in zip(run.metrics.records, err)
-              if m.frame >= reinit[0]]))
+          f"{err[-LIVE_LAST_FRAMES:].max()} m off; " + trace)
+    # the gap rule (runtime/node.py): the frames after the search and
+    # after the pause came more than the damping time after the frame
+    # before them, so each is re-anchored on, and none is lost
+    check(err[since_search].max() < RMSE_LIMIT_M,
+          f"a frame from the search on is {err[since_search].max()} m "
+          "off; " + trace)
+    after = [i for i, f in enumerate(tracked) if f > reinit[0]]
+    resumed = [i for i, f in enumerate(tracked) if f > log["pause"]["frame"]]
+    anchored = [r.frame for r in run.reanchors]
+    for what, later in (("search", after), ("pause", resumed[1:])):
+        check(later and tracked[later[0]] in anchored,
+              f"the first frame after the {what} was not re-anchored: "
+              f"re-anchored {anchored}; (frame, skipped): "
+              + json.dumps(list(zip(tracked, skipped))))
+    reanchors = []
+    for r in run.reanchors:
+        i = tracked.index(r.frame)
+        truth = frames[r.frame].ground_truth[0, :3]
+        reanchors.append({
+            "frame": r.frame, "skipped": r.skipped, "ms": 1e3 * r.seconds,
+            "error_before_m": float(np.linalg.norm(r.before[0, :3] - truth)),
+            "error_after_m": float(np.linalg.norm(r.after[0, :3] - truth)),
+            # what the re-anchor's own time cost the next frame
+            "skipped_next": skipped[i + 1] if i + 1 < len(skipped) else None})
 
-    # the checkpoint loads, restores and tracks one frame
+    # the checkpoint loads, restores and tracks the frame the loop went
+    # on with, over its real interval from the saved frame
     gen = torch.Generator(device=dev)
     belief = checkpoint.load_belief(ckpt, device=dev, generator=gen)
     restored = ParticleTracker(slice_config(), meshes=[mesh], camera=cam,
                                device=dev)
     restored.generator = gen
     restored.restore(belief)
-    f_ck = log["checkpoint_frame"]
-    poses, _ = restored.track(frames[f_ck].depth)
+    f_ck, f_next = service.applied_between[log["checkpoint_seq"]]
+    poses, _ = restored.track(frames[f_next].depth,
+                              dt=(f_next - f_ck) / LIVE_RATE_HZ)
     ck_err = float(torch.linalg.norm(
         poses.reshape(-1, 7)[0, :3].cpu()
-        - torch.as_tensor(frames[f_ck].ground_truth[0, :3])))
+        - torch.as_tensor(frames[f_next].ground_truth[0, :3])))
     check(ck_err < RMSE_LIMIT_M, f"restored checkpoint is {ck_err} m off")
 
     lat = np.array([m.latency_s for m in run.metrics.records]) * 1e3
@@ -2729,8 +2844,6 @@ def live_in(dev, card, tmp):
                       for m in run.metrics.records])
     push_pose = np.array([1e3 * (posed_at[i] - src.pushed_at[i])
                           for i in tracked])
-    after = [i for i, f in enumerate(tracked) if f > reinit[0]]
-    resumed = [i for i, f in enumerate(tracked) if f > log["pause"]["frame"]]
     emit({"phase": "live", "card": card, "particles": P,
           "native_grid": [native_cam.height, native_cam.width],
           "pixels": cam.num_pixels, "triangles": mesh.padded_triangles,
@@ -2759,8 +2872,13 @@ def live_in(dev, card, tmp):
           "render_captured_equals_eager_frames": LIVE_EAGER_CHECKED,
           "u16_convert_ms_median": statistics.median(u16_ms),
           "last30_max_error_m": float(err[-LIVE_LAST_FRAMES:].max()),
+          "since_search_max_error_m": float(err[since_search].max()),
+          "reanchors": reanchors,
+          "unanchored_frames": run.unanchored_frames,
           "position_rmse_m": run.position_rmse(),
-          "checkpoint_frame": f_ck, "checkpoint_restored_error_m": ck_err,
+          "checkpoint_frame": f_ck, "checkpoint_next_frame": f_next,
+          "checkpoint_status_frame": log["checkpoint_frame"],
+          "checkpoint_restored_error_m": ck_err,
           "reset_frame": log["reset_frame"], "pause": log["pause"],
           "shutdown_sent_at": log["shutdown_sent_at"],
           "status_fields": sorted(log["status"]),

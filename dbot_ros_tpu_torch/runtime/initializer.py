@@ -16,6 +16,11 @@ Pipeline:
      annealed random search and polished by per-axis line searches; the
      best refined pose becomes the initial pose.
 
+The search's deterministic local stage (:func:`align_poses`,
+:func:`polish_poses`) also re-anchors a running tracker on the newest
+frame after a long frame gap (:func:`reanchor_tracker`), seeded from the
+poses it holds.
+
 All tensors live on the camera's device. The refinement's random numbers
 come from a ``torch.Generator``, or are passed in (``draws``), which is
 how the tests hold the search against the JAX package's.
@@ -33,7 +38,7 @@ from dbot_ros_tpu_torch.models import beam as beam_mod
 from dbot_ros_tpu_torch.models import occlusion as occ_mod
 from dbot_ros_tpu_torch.models.image_loglik import image_loglik
 from dbot_ros_tpu_torch.ops.budget import xla_tri_chunk
-from dbot_ros_tpu_torch.ops.raycast import raycast_depth
+from dbot_ros_tpu_torch.ops.raycast import MISS_DEPTH, raycast_depth
 from dbot_ros_tpu_torch.trackers import base
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.camera import CameraModel, preprocess_depth
@@ -117,6 +122,131 @@ def segment_centroid(depth, camera: CameraModel, min_depth=0.3,
     return nanmedian(masked, 0), torch.sum(mask)
 
 
+def _render(mesh: TriangleMesh, camera: CameraModel, poses,
+            clip: bool = False):
+    """Depth of ``mesh`` at each of ``poses`` (C, 7) → (C, N). The
+    triangle chunk is degraded to the candidate batch
+    (ops/budget.xla_tri_chunk): the refine generations score beams ×
+    particles ≈ 2k poses at once, and the raycaster's (batch, N, chunk)
+    intermediate has to fit.
+
+    ``clip``: raycast only the pixels whose rays meet a pose's bounding
+    sphere (every other pixel is a miss for every pose: the mesh lies in
+    that sphere), the same depths for a fraction of the work when the
+    object covers a small part of the frame."""
+    if not clip:
+        return raycast_depth(mesh, poses, camera.rays,
+                             xla_tri_chunk(poses.shape[0],
+                                           camera.num_pixels))
+    # squared distance of each pose's origin to each pixel's ray line
+    radius = torch.linalg.norm(mesh.vertices, dim=-1).max()
+    t = poses[:, :3]
+    unit = camera.rays / torch.linalg.norm(camera.rays, dim=-1,
+                                           keepdim=True)
+    along = t @ unit.T                                          # (C, N)
+    off2 = torch.sum(t * t, dim=-1, keepdim=True) - along * along
+    near = (off2 <= (1.001 * radius + 1e-4) ** 2) & (along > -radius)
+    px = torch.nonzero(torch.any(near, dim=0)).reshape(-1)
+    depth = torch.full((poses.shape[0], camera.num_pixels), MISS_DEPTH,
+                       device=poses.device)
+    if px.numel():
+        depth[:, px] = raycast_depth(
+            mesh, poses, camera.rays[px],
+            xla_tri_chunk(poses.shape[0], int(px.numel())))
+    return depth
+
+
+def score_poses(poses, z, mesh: TriangleMesh, camera: CameraModel,
+                bp: beam_mod.BeamParams, op: occ_mod.OcclusionParams,
+                scene_depth=None, clip: bool = False):
+    """Beam-model image log-likelihood of each candidate pose (C, 7)
+    against the preprocessed frame ``z`` (N,) → (C,). ``scene_depth``
+    ((N,) or one row per candidate, (C, N)) is a render of objects
+    already placed: candidates are scored min-combined with it. ``clip``
+    as in :func:`_render`."""
+    depth_pred = _render(mesh, camera, poses, clip)
+    if scene_depth is not None:
+        depth_pred = torch.minimum(depth_pred, scene_depth)
+    occ0 = op.initial_occlusion_prob.expand(poses.shape[0],
+                                            camera.num_pixels)
+    ll, _ = image_loglik(depth_pred, z, occ0, bp, op, 1.0)
+    return ll
+
+
+def align_poses(poses, z, fg, mesh: TriangleMesh, camera: CameraModel,
+                scene_depth=None, clip: bool = False):
+    """Analytic position alignment of each candidate pose (C, 7) to the
+    foreground ``fg`` (N,) of the frame ``z`` (N,) → (C, 7), the
+    orientation kept.
+
+    The position moves by the robust depth offset (median of observed −
+    predicted over the overlap) and by the silhouette-centroid shift in
+    the tangent plane. With ``scene_depth`` ((N,) or (C, N)) only pixels
+    where the candidate is in front of the placed objects count. ``clip``
+    as in :func:`_render`."""
+    n_fg = torch.clamp_min(torch.sum(fg).to(torch.float32), 1.0)
+    obs_cx = torch.sum(torch.where(fg, camera.rays[:, 0], 0.0)) / n_fg
+    obs_cy = torch.sum(torch.where(fg, camera.rays[:, 1], 0.0)) / n_fg
+    pred = _render(mesh, camera, poses, clip)                  # (C, N)
+    on = torch.isfinite(pred)
+    if scene_depth is not None:
+        # only trust pixels where the candidate is actually visible
+        on = on & (pred <= scene_depth + 0.01)
+    both = on & fg[None, :]
+    dz = torch.where(both, z[None, :] - pred, float("nan"))
+    dz = torch.nan_to_num(nanmedian(dz, -1))                   # (C,)
+    non = torch.clamp_min(torch.sum(on, dim=-1).to(torch.float32), 1.0)
+    pcx = torch.sum(torch.where(on, camera.rays[None, :, 0], 0.0),
+                    dim=-1) / non
+    pcy = torch.sum(torch.where(on, camera.rays[None, :, 1], 0.0),
+                    dim=-1) / non
+    depth0 = poses[:, 2]
+    shift = torch.stack([(obs_cx - pcx) * depth0,
+                         (obs_cy - pcy) * depth0, dz], dim=-1)
+    return torch.cat([poses[:, :3] + shift, poses[:, 3:]], dim=-1)
+
+
+def _best_of(cands, ll_c):
+    """Per beam, the best of its candidates (M, C, 7) / (M, C)."""
+    best = torch.argmax(ll_c, dim=1)
+    rows = torch.arange(cands.shape[0], device=cands.device)
+    return cands[rows, best], ll_c[rows, best]
+
+
+def polish_poses(beams, beam_ll, z, fg, mesh: TriangleMesh,
+                 camera: CameraModel, bp: beam_mod.BeamParams,
+                 op: occ_mod.OcclusionParams, rounds: int,
+                 scene_depth=None, clip: bool = False):
+    """``rounds`` of deterministic rotation coordinate descent with the
+    analytic position alignment → (beams (M, 7), their scores (M,)).
+
+    Each round aligns every beam, then line-searches each rotation axis
+    over ``POLISH_OFFSETS`` and keeps the best offset (0 included).
+    ``scene_depth`` is (N,) or one row per beam (M, N); ``clip`` as in
+    :func:`_render`."""
+    dev = beams.device
+    offsets = torch.tensor(POLISH_OFFSETS, device=dev)
+    n_off = offsets.shape[0]
+    cand_scene = scene_depth
+    if scene_depth is not None and scene_depth.ndim == 2:
+        cand_scene = scene_depth.repeat_interleave(n_off, dim=0)
+    for _ in range(rounds):
+        beams = align_poses(beams, z, fg, mesh, camera, scene_depth, clip)
+        m = beams.shape[0]
+        for ax in range(3):
+            dr = torch.zeros((n_off, 3), device=dev)
+            dr[:, ax] = offsets
+            q = se3.quat_boxplus(
+                beams[:, None, 3:7].expand(m, n_off, 4),
+                dr[None].expand(m, n_off, 3))
+            cands = torch.cat([beams[:, None, :3].expand(m, n_off, 3), q],
+                              dim=-1)
+            ll_c = score_poses(cands.reshape(-1, 7), z, mesh, camera, bp,
+                               op, cand_scene, clip).reshape(m, n_off)
+            beams, beam_ll = _best_of(cands, ll_c)
+    return beams, beam_ll
+
+
 def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
                       bp: beam_mod.BeamParams = None,
                       op: occ_mod.OcclusionParams = None,
@@ -168,53 +298,16 @@ def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
                             else 0.03) * view
     poses = torch.cat([seed.expand(quats.shape[0], 3), quats], dim=-1)
 
-    # The triangle chunk is degraded to the candidate batch
-    # (ops/budget.xla_tri_chunk): the refine generations score
-    # beams × particles ≈ 2k poses at once, and the raycaster's
-    # (batch, N, chunk) intermediate has to fit.
-    def render(poses):
-        return raycast_depth(
-            mesh, poses, camera.rays,
-            xla_tri_chunk(poses.shape[0], camera.num_pixels))
-
     def score(poses):
-        depth_pred = render(poses)
-        if scene_depth is not None:
-            depth_pred = torch.minimum(depth_pred, scene_depth[None, :])
-        occ0 = op.initial_occlusion_prob.expand(poses.shape[0],
-                                                camera.num_pixels)
-        ll, _ = image_loglik(depth_pred, z, occ0, bp, op, 1.0)
-        return ll
+        return score_poses(poses, z, mesh, camera, bp, op, scene_depth)
+
+    def align(poses):
+        return align_poses(poses, z, fg, mesh, camera, scene_depth)
 
     # Analytic position alignment per candidate before ranking: the
     # centroid seed is biased (median of the *visible* surface is not the
     # object centre), and a few cm of position error corrupts the coarse
-    # scores enough to bury the true orientation. Correct each candidate
-    # by the robust depth offset (median of observed − predicted over the
-    # overlap) and the silhouette-centroid shift (tangent plane), twice.
-    n_fg_f = torch.clamp_min(torch.sum(fg).to(torch.float32), 1.0)
-    obs_cx = torch.sum(torch.where(fg, camera.rays[:, 0], 0.0)) / n_fg_f
-    obs_cy = torch.sum(torch.where(fg, camera.rays[:, 1], 0.0)) / n_fg_f
-
-    def align(poses):
-        pred = render(poses)                                   # (C, N)
-        on = torch.isfinite(pred)
-        if scene_depth is not None:
-            # only trust pixels where the candidate is actually visible
-            on = on & (pred <= scene_depth[None, :] + 0.01)
-        both = on & fg[None, :]
-        dz = torch.where(both, z[None, :] - pred, float("nan"))
-        dz = torch.nan_to_num(nanmedian(dz, -1))               # (C,)
-        non = torch.clamp_min(torch.sum(on, dim=-1).to(torch.float32), 1.0)
-        pcx = torch.sum(torch.where(on, camera.rays[None, :, 0], 0.0),
-                        dim=-1) / non
-        pcy = torch.sum(torch.where(on, camera.rays[None, :, 1], 0.0),
-                        dim=-1) / non
-        depth0 = poses[:, 2]
-        shift = torch.stack([(obs_cx - pcx) * depth0,
-                             (obs_cy - pcy) * depth0, dz], dim=-1)
-        return torch.cat([poses[:, :3] + shift, poses[:, 3:]], dim=-1)
-
+    # scores enough to bury the true orientation. Twice.
     poses = align(align(poses))
     ll = score(poses)
 
@@ -240,12 +333,6 @@ def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
     picks = torch.stack(picks)
     beams, beam_ll = sorted_poses[picks], sorted_ll[picks]    # (M, 7), (M,)
     m = beams.shape[0]
-
-    def best_of(cands, ll_c):
-        """Per beam, the best of its candidates (M, C, 7) / (M, C)."""
-        best = torch.argmax(ll_c, dim=1)
-        rows = torch.arange(cands.shape[0], device=dev)
-        return cands[rows, best], ll_c[rows, best]
 
     for step in range(refine_steps):
         # Re-run the analytic position alignment every generation: with a
@@ -277,27 +364,14 @@ def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
                 rot_s * n_rot)], dim=-1)
         cands = torch.cat([beams[:, None], cands], dim=1)
         ll_c = score(cands.reshape(-1, 7)).reshape(m, -1)
-        beams, beam_ll = best_of(cands, ll_c)
+        beams, beam_ll = _best_of(cands, ll_c)
 
-    # Polish: deterministic rotation coordinate descent + analytic
-    # position alignment. The anneal ladder locks basins but leaves beams
-    # up to ~0.15 rad under their optima, enough for a broad wrong basin
-    # (a near-symmetric flip) to outrank a narrow correct one. A per-axis
+    # Polish: the anneal ladder locks basins but leaves beams up to ~0.15
+    # rad under their optima, enough for a broad wrong basin (a
+    # near-symmetric flip) to outrank a narrow correct one. A per-axis
     # line search walks likelihood ridges directly.
-    offsets = torch.tensor(POLISH_OFFSETS, device=dev)
-    n_off = offsets.shape[0]
-    for _ in range(polish_rounds):
-        beams = align(beams)
-        for ax in range(3):
-            dr = torch.zeros((n_off, 3), device=dev)
-            dr[:, ax] = offsets
-            q = se3.quat_boxplus(
-                beams[:, None, 3:7].expand(m, n_off, 4),
-                dr[None].expand(m, n_off, 3))
-            cands = torch.cat([beams[:, None, :3].expand(m, n_off, 3), q],
-                              dim=-1)
-            ll_c = score(cands.reshape(-1, 7)).reshape(m, n_off)
-            beams, beam_ll = best_of(cands, ll_c)
+    beams, beam_ll = polish_poses(beams, beam_ll, z, fg, mesh, camera, bp,
+                                  op, polish_rounds, scene_depth)
 
     best = torch.argmax(beam_ll)
     if return_beams:
@@ -306,14 +380,16 @@ def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
 
 
 def _cluster_masks(z, camera: CameraModel, n_clusters: int,
-                   min_depth, max_depth, iters: int = 12):
+                   min_depth, max_depth, iters: int = 12, centers=None):
     """Partition foreground pixels into ``n_clusters`` 3-D k-means
     clusters (host-side NumPy, init-time only) → list of (N,) bool masks
     on the camera's device.
 
     Seeded by spreading centres along the principal axis of the
     foreground point cloud, which separates side-by-side objects and
-    front/behind mutual-occlusion configurations (depth is a coordinate).
+    front/behind mutual-occlusion configurations (depth is a coordinate),
+    or from ``centers`` (n_clusters, 3) when given (a re-anchor's
+    objects, so that cluster k is object k's).
     """
     dev = camera.rays.device
     zn = torch.as_tensor(z).detach().cpu().numpy().astype(
@@ -331,12 +407,16 @@ def _cluster_masks(z, camera: CameraModel, n_clusters: int,
         return out()
     p = camera.rays.detach().cpu().numpy().astype(
         np.float64)[idx] * zn[idx, None]
-    c0 = p.mean(0)
-    d = p - c0
-    ax = np.linalg.svd(d, full_matrices=False)[2][0]
-    t = d @ ax
-    qs = np.quantile(t, (np.arange(n_clusters) + 0.5) / n_clusters)
-    centers = c0 + qs[:, None] * ax
+    if centers is None:
+        c0 = p.mean(0)
+        d = p - c0
+        ax = np.linalg.svd(d, full_matrices=False)[2][0]
+        t = d @ ax
+        qs = np.quantile(t, (np.arange(n_clusters) + 0.5) / n_clusters)
+        centers = c0 + qs[:, None] * ax
+    else:
+        centers = torch.as_tensor(centers).detach().cpu().numpy().astype(
+            np.float64).reshape(n_clusters, 3)
     lab = np.zeros(idx.size, np.int64)
     for _ in range(iters):
         dist = ((p[:, None] - centers[None]) ** 2).sum(-1)
@@ -430,17 +510,30 @@ def find_initial_poses(depth, meshes, camera: CameraModel,
     return torch.stack(placed), torch.stack(scores)
 
 
-def _tracker_init_kwargs(tracker, depth, reuse_background):
+def _tracker_init_kwargs(tracker, depth, reuse_background,
+                         keep_covariance=False):
     """Optional arguments of ``tracker.initialize`` that only some
     trackers take (a learned background model's ``first_frame`` and
-    ``reuse_background``); the particle tracker takes neither."""
+    ``reuse_background``, a Gaussian belief's ``keep_covariance``); the
+    particle tracker takes none."""
     params = inspect.signature(tracker.initialize).parameters
     kw = {}
     if "first_frame" in params:
         kw["first_frame"] = depth
     if reuse_background and "reuse_background" in params:
         kw["reuse_background"] = True
+    if keep_covariance and "keep_covariance" in params:
+        kw["keep_covariance"] = True
     return kw
+
+
+def _temperature(tracker, hypothesis_margin):
+    """Logit temperature of the kept hypotheses: the margin edge maps to
+    ~1/P of the mass (P the tracker's particle count, 1000 for a tracker
+    without one)."""
+    n_part = int(getattr(getattr(tracker, "config", None),
+                         "evaluation_count", 1000))
+    return hypothesis_margin / float(np.log(max(n_part, 2)))
 
 
 def initialize_tracker(tracker, depth, hypothesis_margin: float = 30.0,
@@ -469,9 +562,7 @@ def initialize_tracker(tracker, depth, hypothesis_margin: float = 30.0,
     ``generator``, ...).
     """
     meshes = list(tracker.meshes)
-    n_part = int(getattr(getattr(tracker, "config", None),
-                         "evaluation_count", 1000))
-    temp = hypothesis_margin / float(np.log(max(n_part, 2)))
+    temp = _temperature(tracker, hypothesis_margin)
     hyp_kwargs = {}
 
     if len(meshes) > 1:
@@ -533,3 +624,70 @@ def initialize_tracker(tracker, depth, hypothesis_margin: float = 30.0,
                                            reuse_background))
     tracker.initialize(pose_model, **hyp_kwargs)
     return pose_model, score
+
+
+def reanchor_tracker(tracker, depth, min_depth=0.3, max_depth=1.5,
+                     polish_rounds: int = 3,
+                     hypothesis_margin: float = 30.0, **search_kwargs):
+    """Re-anchor a tracker's belief on the frame ``depth`` after a long
+    frame gap (``runtime.node.run``) → (before, after), the published
+    model-frame poses (K, 7) as they were and as placed, or None when the
+    frame has no foreground pixel in the depth band (nothing changes).
+
+    The search's deterministic local stage, seeded from what the tracker
+    holds (``tracker.hypothesis_means()``: each racing hypothesis in a
+    trial, else the belief's mean): the analytic alignment twice, then
+    ``polish_rounds`` rounds of :func:`polish_poses`. No coarse grid, no
+    random refinement: it takes no draws; its renders are clipped to the
+    pixels in the objects' reach (:func:`_render`). K objects are
+    re-anchored one by one, each on its own cluster of the foreground
+    (k-means seeded from the objects' positions) with the others' render
+    as ``scene_depth``. The tracker is then re-initialized at the best
+    hypothesis; two or more race again as a trial, with their logits
+    re-scored on this frame under :func:`initialize_tracker`'s
+    temperature rule; a learned background map is kept, and so is a
+    Gaussian belief's covariance (its initial spread over the stale map
+    throws the first step several mm off).
+
+    ``search_kwargs``: the search's other arguments (``n_axes``,
+    ``refine_particles``, ...), which the re-anchor does not use.
+    """
+    camera = tracker.camera
+    meshes = list(tracker.meshes)
+    centers = tracker.centers
+    before = tracker.hypothesis_means()                 # (H, K, 7)
+    poses = base.to_center_frame(before, centers)
+    z = _depth_on(depth, camera)
+    fg = torch.isfinite(z) & (z > min_depth) & (z < max_depth)
+    masks = [fg] if len(meshes) == 1 else _cluster_masks(
+        z, camera, len(meshes), min_depth, max_depth,
+        centers=poses[0, :, :3])
+    if not all(bool(m.any()) for m in masks):
+        return None
+    bp = tracker.beam_params
+    op = occ_mod.make_occlusion_params(device=camera.rays.device)
+    for k, mesh in enumerate(meshes):
+        scene = None
+        for j, other in enumerate(meshes):
+            if j != k:
+                d = _render(other, camera, poses[:, j], clip=True)
+                scene = d if scene is None else torch.minimum(scene, d)
+        beams = poses[:, k]
+        for _ in range(2):
+            beams = align_poses(beams, z, masks[k], mesh, camera, scene,
+                                clip=True)
+        ll = score_poses(beams, z, mesh, camera, bp, op, scene, clip=True)
+        beams, ll = polish_poses(beams, ll, z, masks[k], mesh, camera, bp,
+                                 op, polish_rounds, scene, clip=True)
+        poses[:, k] = beams
+    # the last object was scored against the others' placed render: its
+    # scores are the hypotheses' joint scores
+    after = base.to_model_frame(poses, centers)
+    best = int(torch.argmax(ll))
+    kwargs = _tracker_init_kwargs(tracker, depth, reuse_background=True,
+                                  keep_covariance=True)
+    if after.shape[0] > 1:
+        kwargs.update(hypotheses=after, hypothesis_logits=(
+            ll - ll.max()) / _temperature(tracker, hypothesis_margin))
+    tracker.initialize(after[best], **kwargs)
+    return before[0], after[best]

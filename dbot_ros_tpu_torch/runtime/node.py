@@ -5,6 +5,30 @@ wire a frame source to a tracker, collect per-frame metrics and the
 estimated trajectory, checkpoint the belief, re-acquire through the
 watchdog, take commands from the control service, and (with ground
 truth) report pose RMSE.
+
+**Frame gaps.** A push source drops frames while the loop is busy (a
+search, a pause, a stall) and reports them as ``Frame.skipped``. With
+``gap = (1 + skipped) / frame_rate`` and the transition's damping time
+``1 / damping`` (0.25 s by default), the longest interval over which its
+integrated-Wiener noise still models the damped motion:
+
+1. ``gap`` up to the damping time: the frame propagates over ``gap``,
+   the reference's rule.
+2. a longer ``gap``: the belief is re-anchored on this frame (the
+   search's deterministic alignment and polish, seeded from the poses
+   the tracker holds: ``initializer.reanchor_tracker``), and the frame
+   is tracked at the nominal interval. The reference propagates over the
+   whole gap, whose noise (0.65 m per axis after 5 s at 0.1 m/s^1.5)
+   loses the belief.
+3. the frame right after a re-anchor propagates over its gap capped at
+   the damping time, so that re-anchors do not chain (a watchdog search
+   on that frame lifts the cap: the search placed the belief anew); so
+   does a frame with no foreground pixel in the search's depth band,
+   which cannot be aligned, or whose re-anchor raised (counted in
+   ``TrackRun.unanchored_frames``, a line on stderr).
+
+A frame on which a command re-initialized the tracker is tracked at the
+nominal interval.
 """
 
 from __future__ import annotations
@@ -23,6 +47,17 @@ from dbot_ros_tpu_torch.utils import se3
 
 
 @dataclasses.dataclass
+class Reanchor:
+    """One re-anchor after a long frame gap."""
+
+    frame: int
+    skipped: int                 # frames the source dropped before it
+    seconds: float
+    before: np.ndarray           # (K, 7) published model-frame poses
+    after: np.ndarray            # (K, 7) as placed on this frame
+
+
+@dataclasses.dataclass
 class TrackRun:
     """Result of a streaming run."""
 
@@ -32,6 +67,9 @@ class TrackRun:
     reinit_frames: List[int] = dataclasses.field(default_factory=list)
     # seconds each watchdog re-init (the 6-DoF search) took
     reinit_seconds: List[float] = dataclasses.field(default_factory=list)
+    reanchors: List[Reanchor] = dataclasses.field(default_factory=list)
+    # frames after a long gap that could not be re-anchored on
+    unanchored_frames: List[int] = dataclasses.field(default_factory=list)
 
     def position_errors(self):
         if self.ground_truth is None:
@@ -87,9 +125,8 @@ def run(tracker, source, initial_pose=None,
         ground truth.
       on_frame: optional callback(frame, poses, info), the publisher
         hook; ``poses`` is a (K, 7) numpy array. A frame that reports
-        ``skipped`` dropped frames is propagated over ``1 + skipped``
-        frame intervals, but the first frame after a re-initialization
-        over at most the transition's damping time (see below).
+        ``skipped`` dropped frames follows the gap rule of the module
+        docstring; its re-anchors land in ``TrackRun.reanchors``.
       checkpoint_path, checkpoint_every: save the belief (and a particle
         tracker's generator state) every ``checkpoint_every`` frames.
       watchdog: optional runtime.watchdog.TrackingWatchdog, fed every
@@ -99,7 +136,8 @@ def run(tracker, source, initial_pose=None,
         hypotheses. Tripped frame indices land in
         ``TrackRun.reinit_frames``.
       reinit_kwargs: forwarded to that search (n_axes, n_spins,
-        refine_particles, depth range: speed against robustness).
+        refine_particles, depth range: speed against robustness); a
+        re-anchor takes its depth range and ``polish_rounds``.
       service: optional runtime.service.TrackerService: its queued
         commands (reset_pose, find_object, checkpoint, shutdown) are
         applied on this thread before each frame, a pause holds the loop
@@ -128,26 +166,20 @@ def run(tracker, source, initial_pose=None,
     gt_out: List[np.ndarray] = []
     reinit_frames: List[int] = []
     reinit_seconds: List[float] = []
+    reanchors: List[Reanchor] = []
+    unanchored: List[int] = []
     log = MetricsLog()
     num_particles = getattr(getattr(tracker, "config", None),
                             "evaluation_count", None)
     # frames dropped by a push source propagate over the real interval
     base_dt = getattr(tracker, "_dt", None)
-    # A re-initialization (a service command applied before a frame, or
-    # the watchdog's search after one) places the belief at that frame,
-    # and a push source drops the frames that arrive while it runs (~150
-    # in a 5 s search at 30 Hz). The reference propagates the next frame
-    # over all of them: its integrated-Wiener noise grows as dt^3 (sigma
-    # 0.65 m per axis after 5 s at 0.1 m/s^1.5) and loses a 10k-particle
-    # belief. The port propagates it over the real interval up to the
-    # transition's damping time 1/damping (0.25 s by default), the
-    # longest over which that noise still models the damped motion.
+    # the gap rule's threshold: the transition's damping time
     damping = getattr(getattr(tracker, "trans_params", None), "damping",
                       None)
     reinit_max_dt = (1.0 / float(damping)
                      if damping is not None and float(damping) > 0
                      else base_dt)
-    reanchored = False
+    after_reanchor = False
 
     def pump_service(frame):
         """Apply queued commands; hold here while paused (no frame is
@@ -162,24 +194,54 @@ def run(tracker, source, initial_pose=None,
                 return True
             time.sleep(0.01)
 
+    def reanchor(frame):
+        """Rule 2 on ``frame``: True when the belief was placed on it."""
+        from dbot_ros_tpu_torch.runtime.initializer import reanchor_tracker
+        t_start = time.perf_counter()
+        try:
+            placed = reanchor_tracker(tracker, frame.depth,
+                                      **(reinit_kwargs or {}))
+            why = "no foreground to re-anchor on"
+        except Exception as e:  # noqa: BLE001 - keep tracking
+            placed, why = None, (f"re-anchor failed: {type(e).__name__}: "
+                                 f"{e}")
+        if placed is None:
+            unanchored.append(frame.index)
+            print(f"frame {frame.index}: {why} after {frame.skipped} "
+                  f"dropped frames; propagated over "
+                  f"{max(base_dt, reinit_max_dt):.3f} s", file=sys.stderr)
+            return False
+        before, after = (p.detach().cpu().numpy().reshape(-1, 7)
+                         for p in placed)
+        reanchors.append(Reanchor(frame.index, int(frame.skipped),
+                                  time.perf_counter() - t_start,
+                                  before, after))
+        return True
+
     def handle(frame):
-        nonlocal reanchored
+        nonlocal after_reanchor
         belief = getattr(tracker, "belief", None)
         if not pump_service(frame):
             return False                          # shutdown requested
         # a command re-initialized the tracker on this frame
         commanded = getattr(tracker, "belief", None) is not belief
-        t0 = time.perf_counter()
-        trial_n = getattr(tracker, "trial_active", None)
         skipped = getattr(frame, "skipped", None)
-        # a commanded re-initialization placed the belief at this frame
+        dt = None                                 # the nominal interval
+        anchored = False
         if base_dt is not None and skipped and not commanded:
-            dt = base_dt * (1 + skipped)
-            if reanchored:
-                dt = max(base_dt, min(dt, reinit_max_dt))
-            poses, info = tracker.track(frame.depth, dt=dt)
-        else:
+            gap = base_dt * (1 + skipped)
+            if gap <= reinit_max_dt:
+                dt = gap
+            elif not after_reanchor and reanchor(frame):
+                anchored = True
+            else:
+                dt = max(base_dt, reinit_max_dt)
+        trial_n = getattr(tracker, "trial_active", None)
+        t0 = time.perf_counter()
+        if dt is None:
             poses, info = tracker.track(frame.depth)
+        else:
+            poses, info = tracker.track(frame.depth, dt=dt)
         poses = poses.detach().cpu().numpy()     # waits for the device
         if poses.ndim == 1:
             poses = poses[None]
@@ -194,7 +256,7 @@ def run(tracker, source, initial_pose=None,
         log.append(m)
         if on_frame is not None:
             on_frame(frame, poses, info)
-        reanchored = commanded
+        after_reanchor = anchored
         if watchdog is not None and watchdog.update(info, num_particles):
             # tracking lost: global re-acquisition on the current frame.
             # Contained: a degenerate frame (an all-NaN burst, exactly the
@@ -213,7 +275,9 @@ def run(tracker, source, initial_pose=None,
                                       **(reinit_kwargs or {})})
                 reinit_frames.append(frame.index)
                 reinit_seconds.append(time.perf_counter() - t_search)
-                reanchored = True
+                # the belief is placed on this frame: the next one after
+                # the search's gap is re-anchored
+                after_reanchor = False
             except Exception as e:  # noqa: BLE001 - keep tracking
                 print(f"watchdog re-init failed on frame {frame.index}: "
                       f"{type(e).__name__}: {e}", file=sys.stderr)
@@ -242,4 +306,5 @@ def run(tracker, source, initial_pose=None,
         metrics=log,
         ground_truth=np.stack(gt_out) if gt_out and
         len(gt_out) == len(poses_out) else None,
-        reinit_frames=reinit_frames, reinit_seconds=reinit_seconds)
+        reinit_frames=reinit_frames, reinit_seconds=reinit_seconds,
+        reanchors=reanchors, unanchored_frames=unanchored)

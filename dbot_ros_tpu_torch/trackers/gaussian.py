@@ -222,7 +222,8 @@ class GaussianTracker:
     def initialize(self, pose_model, first_frame=None, hypotheses=None,
                    hypothesis_logits=None, trial_frames: int = 6,
                    trial_switch_margin: float = 1.0,
-                   reuse_background: bool = False):
+                   reuse_background: bool = False,
+                   keep_covariance: bool = False):
         """Set the initial pose(s); optionally race init hypotheses.
 
         ``hypotheses`` (H, 7) | (H, K, 7) model-frame poses (the
@@ -245,6 +246,13 @@ class GaussianTracker:
         background map into the new belief(s) instead of re-seeding from
         ``first_frame`` (the recovery semantics: the world model persists
         across a re-initialization, only the object belief resets).
+
+        ``keep_covariance``: carry the incumbent belief's covariance into
+        the new belief(s) instead of the initial spread (a re-anchor,
+        ``runtime.initializer.reanchor_tracker``: the pose was aligned on
+        the newest frame, and a fresh spread over the stale background
+        map throws the first step several mm off); the velocity is still
+        reset to zero.
         """
         pose_center = self._to_center(self._poses(pose_model))
         hyp = None
@@ -255,6 +263,9 @@ class GaussianTracker:
         inherited_bg = (self.belief.background
                         if reuse_background and self.belief is not None
                         else None)
+        kept_cov = (self.belief.cov.clone()
+                    if keep_covariance and self.belief is not None
+                    else None)
         if first_frame is not None:
             first_frame = self._frame(first_frame)
         if first_frame is not None and inherited_bg is None \
@@ -273,6 +284,8 @@ class GaussianTracker:
             b = self._make_belief(pc, first_frame)
             if inherited_bg is not None:
                 b = dataclasses.replace(b, background=inherited_bg)
+            if kept_cov is not None:
+                b = dataclasses.replace(b, cov=kept_cov)
             return b
 
         self.belief = build(pose_center)
@@ -300,6 +313,18 @@ class GaussianTracker:
         self.belief = belief
         self._smoothed = belief.mean[..., :7]
         self._trial = None
+
+    def hypothesis_means(self):
+        """Model-frame mean poses (H, K, 7) of the racing hypotheses
+        during a trial (slot 0, the published one, first), else of the
+        belief (H = 1): what a re-anchor seeds from
+        (``runtime.initializer.reanchor_tracker``)."""
+        if self.belief is None:
+            raise RuntimeError("call initialize(pose) first")
+        beliefs = self._trial["beliefs"] if self._trial else [self.belief]
+        means = torch.stack([b.mean[..., :7].reshape(self.num_objects, 7)
+                             for b in beliefs])
+        return base.to_model_frame(means, self.centers)
 
     def track(self, depth_image, dt=None):
         """One frame → (pose(s) in the model frame, RgfStepInfo).

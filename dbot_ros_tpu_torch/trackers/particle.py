@@ -272,9 +272,18 @@ class ParticleTracker:
         tracker's own, which each step overwrites)."""
         self._trial = None
         self.belief = belief
-        ln, _ = rs.normalize_log_weights(belief.log_weights)
-        mean = se3.states_mean(belief.states, torch.exp(ln))
-        self._smoothed = mean[:, :7]
+        self._smoothed = _mean_pose(belief)
+
+    def hypothesis_means(self):
+        """Model-frame mean poses (H, K, 7) of the racing island beliefs
+        during a trial (slot 0, the published one, first), else of the
+        belief (H = 1): what a re-anchor seeds from
+        (``runtime.initializer.reanchor_tracker``)."""
+        if self.belief is None:
+            raise RuntimeError("call initialize(poses) first")
+        beliefs = self._trial["beliefs"] if self._trial else [self.belief]
+        return base.to_model_frame(
+            torch.stack([_mean_pose(b) for b in beliefs]), self.centers)
 
     def _step(self, belief, z, dt, generator):
         """One filter step of ``belief`` through the step program of
@@ -380,6 +389,12 @@ class ParticleTracker:
             self._smoothed, new_poses,
             self.config.moving_average_update_rate)
         return base.to_model_frame(self._smoothed, self.centers), info
+
+
+def _mean_pose(belief: rbcpf.ParticleBelief):
+    """The weighted mean pose (K, 7) of a particle belief, centred frame."""
+    ln, _ = rs.normalize_log_weights(belief.log_weights)
+    return se3.states_mean(belief.states, torch.exp(ln))[:, :7]
 
 
 def _host(x):

@@ -400,7 +400,7 @@ def test_track_service_from_the_command_line(tmp_path, sock_dir, capsys):
     assert not os.path.exists(sock)          # closed in finally
 
 
-# ------------------------------------------- the interval after a re-init
+# ------------------------------------------------------ the frame-gap rule
 
 class StubTracker:
     """Records the ``dt`` of every ``track`` call; ``initialize`` replaces
@@ -424,61 +424,120 @@ class StubTracker:
         return (torch.as_tensor(pose) if self.as_tensor else pose), None
 
 
+# frames dropped before each frame: 6 intervals (0.2 s, under the damping
+# time), 151 (5 s) twice, 10 (0.33 s), 5
+GAP_SKIPPED = [None, 0, 5, 150, 150, 9, 4]
+
+
 def skipped_stream(frame_cls):
     return [frame_cls(i, np.zeros(4, np.float32), None, skipped=s)
-            for i, s in enumerate([None, 0, 5, 7, 150, 4])]
+            for i, s in enumerate(GAP_SKIPPED)]
 
 
-def test_interval_is_capped_after_a_commanded_reinit():
-    """After a command re-initialized the tracker, the frames a push
-    source dropped meanwhile are propagated over at most the damping time
-    (the port's repair; the reference propagates over all of them, which
-    loses the belief after a 5 s search, PERF.md)."""
-    base = StubTracker._dt
-    for pkg_node, svc_cls, frame_cls, as_tensor in (
-            (node, TrackerService, sources.Frame, True),
-            (jnode, jservice.TrackerService, jsources.Frame, False)):
-        tracker = StubTracker(as_tensor)
-        svc = svc_cls()
+class TripOnFrame:
+    """A watchdog that trips once, after the step of the ``trip``-th
+    frame tracked (0-based)."""
 
-        def on_frame(frame, poses, info, svc=svc):
-            if frame.index == 2:
-                svc.submit({"cmd": "reset_pose", "pose": START.tolist()})
+    def __init__(self, trip):
+        self.n, self.trip = 0, trip
 
-        pkg_node.run(tracker, skipped_stream(frame_cls), initial_pose=START,
-                     on_frame=on_frame, service=svc)
-        if pkg_node is node:
-            # frame 3: the belief is placed at it; frame 4: the first
-            # after the re-initialization, 151 intervals capped at 0.25 s
-            assert tracker.calls[:3] == [None, None, 6 * base]
-            assert tracker.calls[3] is None
-            np.testing.assert_allclose(tracker.calls[4:], [0.25, 5 * base])
-        else:
-            assert tracker.calls == [None, None, 6 * base, 8 * base,
-                                     151 * base, 5 * base]
+    def update(self, info, num_particles):
+        self.n += 1
+        return self.n == self.trip + 1
 
 
-def test_interval_is_capped_after_a_watchdog_reinit(monkeypatch):
+# the tracked frames' dt by cause (None = the nominal interval), and the
+# re-anchored frames: a gap up to the damping time keeps the reference's
+# interval; a longer one re-anchors the frame and tracks it at the
+# nominal interval, unless the frame before was re-anchored (then the
+# interval is capped at the damping time); a frame a command
+# re-initialized the tracker on is tracked at the nominal interval
+B = StubTracker._dt
+GAP_RULE = {
+    # a pause or a stall
+    "gap": ([None, None, 6 * B, None, 0.25, None, 5 * B], [3, 5]),
+    # reset_pose applied before frame 3
+    "command": ([None, None, 6 * B, None, None, 0.25, 5 * B], [4]),
+    # the watchdog's search on frame 2
+    "watchdog": ([None, None, 6 * B, None, 0.25, None, 5 * B], [3, 5]),
+    # the watchdog's search on frame 3, a re-anchored one: the search
+    # placed the belief anew, so frame 4 after its gap is re-anchored
+    "watchdog_on_reanchor": ([None, None, 6 * B, None, None, 0.25, 5 * B],
+                             [3, 4]),
+}
+# the frame after whose step the watchdog trips, by cause
+TRIP = {"watchdog": 2, "watchdog_on_reanchor": 3}
+
+
+@pytest.mark.parametrize("cause", sorted(GAP_RULE))
+def test_frame_gap_rule(cause, monkeypatch):
+    """The port's rule for a frame after dropped frames, whatever dropped
+    them; the reference propagates every frame over its whole gap, which
+    loses the belief after a 5 s search (PERF.md)."""
     from dbot_ros_tpu_torch.runtime import initializer
 
-    tracker = StubTracker(True)
+    anchored = []
+
+    def reanchor(tr, depth, **kw):
+        anchored.append(len(tr.calls))      # frames tracked before it
+        tr.initialize(START)
+        return torch.as_tensor(START)[None], torch.as_tensor(START)[None]
+
+    monkeypatch.setattr(initializer, "reanchor_tracker", reanchor)
     monkeypatch.setattr(initializer, "initialize_tracker",
                         lambda tr, depth, **kw: tr.initialize(START))
+    tracker = StubTracker(True)
+    svc = TrackerService()
 
-    class TripOnFrame2:
-        def __init__(self):
-            self.n = 0
-
-        def update(self, info, num_particles):
-            self.n += 1
-            return self.n == 3
+    def on_frame(frame, poses, info):
+        if cause == "command" and frame.index == 2:
+            svc.submit({"cmd": "reset_pose", "pose": START.tolist()})
 
     run = node.run(tracker, skipped_stream(sources.Frame),
-                   initial_pose=START, watchdog=TripOnFrame2())
-    base = StubTracker._dt
-    assert run.reinit_frames == [2]
-    # frame 3, the first after the search: 8 intervals capped at 0.25 s;
-    # frame 4 propagates over its 151 as the reference does
-    assert tracker.calls[:3] == [None, None, 6 * base]
-    np.testing.assert_allclose(tracker.calls[3:],
-                               [0.25, 151 * base, 5 * base])
+                   initial_pose=START, on_frame=on_frame, service=svc,
+                   watchdog=TripOnFrame(TRIP[cause]) if cause in TRIP
+                   else None)
+    want_dt, want_frames = GAP_RULE[cause]
+    assert [c is None for c in tracker.calls] == \
+        [w is None for w in want_dt]
+    np.testing.assert_allclose([c for c in tracker.calls if c is not None],
+                               [w for w in want_dt if w is not None])
+    assert [r.frame for r in run.reanchors] == want_frames == anchored
+    assert [r.skipped for r in run.reanchors] == \
+        [GAP_SKIPPED[f] for f in want_frames]
+    assert run.reinit_frames == ([TRIP[cause]] if cause in TRIP else [])
+    if cause == "command":
+        # the reference, on the same frames: the whole gap every time
+        jtracker = StubTracker(False)
+        jsvc = jservice.TrackerService()
+
+        def jon_frame(frame, poses, info):
+            if frame.index == 2:
+                jsvc.submit({"cmd": "reset_pose", "pose": START.tolist()})
+
+        jnode.run(jtracker, skipped_stream(jsources.Frame),
+                  initial_pose=START, on_frame=jon_frame, service=jsvc)
+        assert jtracker.calls == [None, None, 6 * B, 151 * B, 151 * B,
+                                  10 * B, 5 * B]
+
+
+def test_a_failed_reanchor_keeps_the_capped_propagation(monkeypatch, capsys):
+    """A re-anchor that raises does not end the run: the frame is
+    propagated over the damping time, counted and reported on stderr,
+    and the next long gap is tried again."""
+    from dbot_ros_tpu_torch.runtime import initializer
+
+    def reanchor(tr, depth, **kw):
+        raise RuntimeError("no luck")
+
+    monkeypatch.setattr(initializer, "reanchor_tracker", reanchor)
+    tracker = StubTracker(True)
+    run = node.run(tracker, skipped_stream(sources.Frame),
+                   initial_pose=START)
+    np.testing.assert_allclose(
+        [c for c in tracker.calls if c is not None],
+        [6 * B, 0.25, 0.25, 0.25, 5 * B])
+    assert tracker.calls[:2] == [None, None]
+    assert run.reanchors == [] and run.unanchored_frames == [3, 4, 5]
+    err = capsys.readouterr().err
+    assert err.count("re-anchor failed: RuntimeError: no luck") == 3
