@@ -25,7 +25,12 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    once in float32, bit-exact. The row kernels run at the ladder's tight
    and second level (448 and 2,432 rows), the gather also on ``sel``
    with duplicates, out of range (clamped by both versions) and in
-   float32, bit-exact. Every kernel is also timed cold: over copies of
+   float32, bit-exact. The fifth kernel, the row aging that the
+   distributed exchanges launch (``age_pixel_rows``, the port's own),
+   runs on the whole map (4,800 rows, 10,000 particles) with ages of 0-6
+   frames, bit-exact with NaN where NaN, and ``materialize_occlusion``
+   as an exchange calls it is timed where columns cross and where they
+   do not. Every kernel is also timed cold: over copies of
    its inputs so many that a round touches at least twice the L2 cache,
    outputs included, with the library call on the same copies in turns
    (``library_cold_ms``); a device copy and a fill of the map are
@@ -67,11 +72,12 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    and the eval suite's ``box_mesh(0.05, 0.07, 0.03)``, which crosses in
    front of the sphere (its centre 8 cm nearer, partly hiding it over
    the middle frames), through ``node.run`` over 60 frames with the eval
-   suite's process noise and a fixed ``bary_slack`` (the automatic rule
-   at the box's depth in the box's units, 0.0506: the automatic slack
-   takes the sphere's finer faces as the unit for both meshes and widens
-   the box's faces by ~1.7 cm; that run is printed as a reading,
-   ``auto_slack_...``, not checked). Checks: each object's position RMSE under 1 cm
+   suite's process noise and the automatic slack, per object in its own
+   mesh's units (ops/slack.py; the sphere ~0.32, the box ~0.05; printed
+   at the last frame, ``auto_slack_last_frame``). The same run with one
+   fixed ``bary_slack`` for both meshes (the box's own, 0.0506) is
+   printed as a reading, ``fixed_slack_...``, not checked. Checks: each
+   object's position RMSE under 1 cm
    over the last 30 frames; every frame launches the fused kernel and
    the row gather twice (one sensor call per coordinate block), the row
    scatter once (only the last block commits) and the lineage gather
@@ -202,13 +208,19 @@ port's CUDA kernels from ``dbot_ros_tpu_torch/csrc`` and then:
    gloo ranks started with ``spawn`` share the card, 5,000 particles each,
    collectives staged through pinned host memory: on a frame whose
    surplus fits the counts buffers (C = 640) and on one that overflows
-   to the ring, ``counts``, ``ring`` and ``neighbor`` must equal
-   ``all_gather`` bit for bit in states, log weights and the map's
-   particle columns (the lazy ages are compared and reported, not
-   required); ms, bytes sent and staging seconds per step per mode; the
+   to the ring, with lazy ages that differ by rank, ``counts``, ``ring``
+   and ``neighbor`` must equal ``all_gather`` bit for bit in states, log
+   weights, the map's particle columns and the lazy ages, and in every
+   mode each offspring's materialized occlusion must equal its parent's
+   on the parent's home rank to one bfloat16 rounding (the parent found
+   by its state among both ranks' proposals, the leaf before the
+   exchange recomputed from the same start and draws); ms, bytes sent
+   and staging seconds per step per mode; the
    two-width lineage gather must launch on both ranks; the steps there
    are eager (``capture: false``: gloo stages through the host) and
-   ``capture=True`` must raise; the dry run
+   ``capture=True`` must raise; the row aging must launch on both
+   ranks (its launches are the kernels line's ``launches`` for it and
+   ``two_rank_launches`` for every kernel); the dry run
    (``parallel.dryrun``) at world size 2. A rank that fails, or outlives
    its time, fails the phase. One card cannot measure scaling
    efficiency: these are mechanics;
@@ -256,10 +268,17 @@ Each phase prints one JSON line; any failure raises (exit code != 0);
 the eval phase's failures raise after the kernels line.
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
-``python3 chip_smoke.py --compare`` runs only what a comparison of two
-commits reads: the device and build phases, the row kernels (``rows``:
-the kernels phase's gather and scatter readings at both levels, without
-the out-of-range gather) and the slice (``track`` median). To compare
+``python3 chip_smoke.py --compare [fused] [rows] [slice] [scale]`` runs
+only what a comparison of two commits reads: the device and build
+phases, then the phases named (all four without a name): the kernels
+phase's reading of the fused kernel at the tight level (``fused``), the
+row kernels (``rows``: the kernels phase's gather and scatter readings
+at both levels, without the out-of-range gather), the slice (``track``
+median) and the two gloo ranks' ms, bytes and staging seconds per step
+per mode (``scale``, without the scale phase's checks; in turns as
+they are and with the sensor's materialization replaced by the
+identity, and a profile of the counts step). Name only the
+phases whose entry points both commits share. To compare
 with a parent commit, unpack it with ``git archive`` into a git-ignored
 directory, copy this file over its own, and run ``--compare`` in both
 trees in turns (parent, change, change, parent), one after another on
@@ -392,6 +411,10 @@ CDF_SIZES, CDF_CALLS = (10_000, 100_000), 1_000
 # their parent within one bf16 step (a moved parent shifts the cloud's
 # mean, and with it, rarely, a candidate pixel)
 SCALE_OCC_ATOL = 4e-3
+# the two gloo ranks: an offspring's materialized occlusion against its
+# parent's on the parent's home rank, one rounding of a [0, 1] value to
+# bfloat16 (half its 2^-8 step)
+SCALE_HOME_ATOL = 2.0 ** -9
 
 # the objects phase: the eval suite's box crossing in front of the slice's
 # sphere (a centre 8 cm nearer, 3.7 mm a frame, 0.01 rad a frame about x)
@@ -408,6 +431,9 @@ OBJECTS_POS_ATOL_M, OBJECTS_ROT_ATOL_RAD = 1e-4, 1e-3
 OBJECTS_LAUNCHES_PER_FRAME = {"fused_loglik": 2, "gather_pixel_rows": 2,
                               "scatter_pixel_rows": 1, "lineage_gather": 2}
 ROW_KERNELS = ("gather_pixel_rows", "scatter_pixel_rows")
+# the kernels phase's two-slack case: the automatic slack of the objects
+# phase's sphere and box at their depths, each in its own mesh's units
+TWO_SLACKS = (0.32, 0.0506)
 # the options phase: the slice's belief after 10 frames, 3 sensor frames
 OPTIONS_TRACKED_FRAMES, OPTIONS_FRAMES = 10, 3
 # the bimodal cloud: two blocks 3 cm apart; R = 4 must give candidates on
@@ -451,7 +477,13 @@ KERNELS = {
                            "dbot_ros_tpu/ops/raycast_pallas.py:508"),
     "lineage_gather": ("dbot_ros_tpu_torch/csrc/lineage_gather.cu",
                        "dbot_ros_tpu/ops/raycast_pallas.py:430"),
+    # the port's own: no TPU kernel; the array code it computes
+    "age_pixel_rows": ("dbot_ros_tpu_torch/csrc/pixel_rows.cu",
+                       "none (the closed form of occlusion_as_pn, "
+                       "dbot_ros_tpu/ops/raycast_pallas.py:1052)"),
 }
+# the kernels of every tracker step (the one only the distributed
+# exchanges launch: all_wrappers)
 WRAPPERS = kernels.WRAPPERS
 
 
@@ -471,6 +503,12 @@ def raises(exc, fn):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def all_wrappers():
+    """Every kernel's wrapper by name: the tracker's and the exchanges'
+    (its path: the two gloo ranks)."""
+    return {**kernels.WRAPPERS, **kernels.EXCHANGE_WRAPPERS}
 
 
 def _events_ms(run, count):
@@ -702,9 +740,11 @@ def fused_inputs(sensor, cam, states, z, level, g, dtype=torch.bfloat16):
     n = cand_k.shape[0]
     ages = torch.randint(0, 6, (n,), generator=g, device=dev).float()
     occ = torch.rand((n, p_pad), generator=g, device=dev).to(dtype)
-    params = fs.make_params_vec(sensor.bp, sensor.op, 1.0, 0.25)
+    # one slack for every triangle
+    params = fs.make_params_vec(sensor.bp, sensor.op, 1.0)
+    tri_slack = torch.full((gt.shape[0],), 0.25, device=dev)
     args = (gt, occ, z_k.contiguous(), cand_k.to(torch.int32).contiguous(),
-            rays.contiguous(), ages, params)
+            rays.contiguous(), ages, params, tri_slack)
     return args, sel, {"n": n, "K": cand_k.shape[1], "T": gt.shape[0],
                        "n_active": n_active, "n_uniq": n_uniq,
                        "ladder_level": ladder}
@@ -759,7 +799,9 @@ def fused_bound(args):
 def fused_other_shapes(dev, sensor, cam, mesh, tight_args, g):
     """The fused kernel where the slice's frames do not take it: a
     candidate table in which no pixel shares a slab with a neighbour (at
-    the tight level's shapes), float32 maps, and the ladder's second and
+    the tight level's shapes), two slacks (the packed triangles' first
+    half at the sphere's automatic slack beside the box, the rest at the
+    box's: two objects' meshes), float32 maps, and the ladder's second and
     full levels on nearer scenes. Each is held to the plain version;
     the kernel is timed as in the main comparison, the plain version with
     a few replays only (it takes tens of ms at the full level)."""
@@ -775,6 +817,9 @@ def fused_other_shapes(dev, sensor, cam, mesh, tight_args, g):
         "tight_degenerate_only": tight_args[:3]
         + (torch.full_like(scattered, T - 1),) + tight_args[4:],
         "tight_f32": (tight_args[0], tight_args[1].float()) + tight_args[2:],
+        "tight_two_slacks": tight_args[:7] + (torch.where(
+            torch.arange(T, device=dev) < T // 2, TWO_SLACKS[0],
+            TWO_SLACKS[1]),),
     }
     infos = {}
     for name, level, depth in (("second_level", 1, 0.25),
@@ -799,36 +844,57 @@ def fused_other_shapes(dev, sensor, cam, mesh, tight_args, g):
     return out
 
 
-def phase_kernels(dev):
+def kernels_scene(dev):
+    """The kernels phase's camera, mesh, sensor, a generator and the fused
+    kernel's arguments at the ladder's tight level (``fused_inputs``)."""
     cam = default_kinect_camera(8, device=dev)
     mesh = icosphere_mesh(radius=0.06, subdivisions=3, device=dev)
     bp = beam.make_beam_params(device=dev)
     op = occlusion.make_occlusion_params(device=dev)
     sensor = fs.make_fused_sensor(mesh, cam, bp, op, device=dev)
     states, z = scene(dev, P, cam, mesh, 0.8, SEED)
-    N = cam.num_pixels
-    p_pad = fs.particle_pad(P)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-
     args, sel, info = fused_inputs(sensor, cam, states, z, 0, g)
+    return cam, mesh, sensor, g, args, sel, info
+
+
+def fused_tight(args):
+    """The fused kernel's reading at the tight level: held to its plain
+    version (``check_fused``), both timed in turns, its bound, and its
+    cold time over copies of the inputs (slabs named + map rows: ~47 MB
+    a call). Returns the reading and the kernel's posterior map."""
+    res, occ_k = check_fused(args, "tight level")
+    res.update(time_pair(
+        lambda: kernels.fused_loglik_plain(*args),
+        lambda: kernels.fused_loglik(*args)))
+    res.update(fused_bound(args))
+    copies = [args] + [tuple(a.clone() for a in args)
+                       for _ in range(cold_copies(res["bytes"]) - 1)]
+    res["cold_ms"] = cold_device_ms(
+        [lambda c=c: kernels.fused_loglik(*c) for c in copies])
+    res["cold_copies"] = len(copies)
+    return res, occ_k
+
+
+def phase_fused(dev):
+    """``--compare``: the kernels phase's reading of the fused kernel at
+    the tight level."""
+    _, _, _, _, args, _, info = kernels_scene(dev)
+    res, _ = fused_tight(args)
+    emit({"phase": "fused", "n": info["n"], "T": info["T"], **res})
+
+
+def phase_kernels(dev):
+    cam, mesh, sensor, g, args, sel, info = kernels_scene(dev)
+    N = cam.num_pixels
+    p_pad = fs.particle_pad(P)
     shapes = {"n": info["n"], "K": info["K"], "T": info["T"], "P": P,
               "p_pad": p_pad}
     check(shapes["n"] == 448 and shapes["T"] == 288,
           f"unexpected slice shapes {shapes}")
-    fused, occ_k = check_fused(args, "tight level")
+    fused, occ_k = fused_tight(args)
     out = {"fused_loglik": fused}
-    fused.update(time_pair(
-        lambda: kernels.fused_loglik_plain(*args),
-        lambda: kernels.fused_loglik(*args)))
-    fused.update(fused_bound(args))
-    # cold: copies of the inputs (slabs named + map rows: ~47 MB a call)
-    copies = [args] + [tuple(a.clone() for a in args)
-                       for _ in range(cold_copies(fused["bytes"]) - 1)]
-    fused["cold_ms"] = cold_device_ms(
-        [lambda c=c: kernels.fused_loglik(*c) for c in copies])
-    fused["cold_copies"] = len(copies)
-    del copies
     fused_more = fused_other_shapes(dev, sensor, cam, mesh, args, g)
 
     n_pad = fs._round_up(N, sensor.nb)
@@ -840,6 +906,7 @@ def phase_kernels(dev):
 
     out["lineage_gather"], lineage, real = lineage_results(dev, q, g)
     out["lineage_gather"]["two_widths"] = lineage_two_widths(dev, real, g)
+    out["age_pixel_rows"] = age_results(dev, sensor, q, g)
     # what one graph replay costs for a kernel that does next to nothing,
     # and what such a kernel costs a call among CALLS_PER_GRAPH in a graph
     tiny = torch.zeros((1024,), device=dev)
@@ -858,10 +925,52 @@ def phase_kernels(dev):
               "fused_twice": "bit-identical",
               "rows": "bit-exact; the gather also on sel with duplicates "
                       "and out of range (clamped), and in float32",
-              "lineage": "bit-exact", "lineage_two_widths": "bit-exact"},
+              "lineage": "bit-exact", "lineage_two_widths": "bit-exact",
+              "age_rows": "bit-exact (NaN where NaN)"},
           "results": out, "fused_other_shapes": fused_more,
           "lineage_parents": lineage})
     return out
+
+
+def age_results(dev, sensor, q, g):
+    """The row-aging kernel (the distributed exchanges' materialization,
+    parallel/dist_filter.py) on the kernels phase's map, every pixel's row
+    at 10,000 particles: ages of 0-6 frames drawn per pixel (every third
+    0), NaN, 0 and 1 among the values. Held to its plain version bit for
+    bit, both timed in turns, cold over copies; then
+    ``materialize_occlusion`` as an exchange calls it (the factors from
+    the ages, the kernel, the ages), on a frame where columns cross and on
+    one where they do not: the same pass."""
+    age = torch.randint(0, 7, (q.shape[0],), generator=g,
+                        device=dev).float()
+    age[::3] = 0.0
+    q = q.clone()
+    q[0, :8], q[1, :8], q[2, :8] = float("nan"), 0.0, 1.0
+    geff, pi = sensor._chain(age)
+    got = kernels.age_pixel_rows(q, geff, pi)
+    want = kernels.age_pixel_rows_plain(q, geff, pi)
+    torch.cuda.synchronize()
+    same = (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(), want.nan_to_num()))
+    err = float((got.float() - want.float()).nan_to_num().abs().max())
+    check(same, f"age_pixel_rows differs from its plain version ({err})")
+    res = {"max_abs_err": err, "rows": q.shape[0], "p_pad": q.shape[1],
+           "aged_rows": int((age > 0).sum())}
+    res.update(time_pair(lambda: kernels.age_pixel_rows_plain(q, geff, pi),
+                         lambda: kernels.age_pixel_rows(q, geff, pi)))
+    res.update(roofline(2 * nbytes(q) + nbytes(geff, pi)))
+    copies = [q] + [q.clone() for _ in range(cold_copies(res["bytes"]) - 1)]
+    res["cold_ms"] = cold_device_ms(
+        [lambda c=c: kernels.age_pixel_rows(c, geff, pi) for c in copies])
+    res["cold_copies"] = len(copies)
+    leaf = (q, age)
+    res["materialize_ms"] = {
+        name: device_ms(lambda now=now: sensor.materialize_occlusion(
+            leaf, now))
+        for name, now in (("crossing", torch.tensor(True, device=dev)),
+                          ("not_crossing",
+                           torch.tensor(False, device=dev)))}
+    return res
 
 
 def ladder_sel(sensor, cam, mesh, dev, depth, level, seed):
@@ -1555,11 +1664,10 @@ def phase_graph(dev, card):
 
 def box_slack():
     """The automatic slack rule (ops/slack.py: 0.25 px of footprint) at
-    the box's depth in the box's own barycentric units (0.0506). The
-    sensor's automatic slack takes the finest mesh's median edge for
-    every mesh: the sphere's 9.4 mm gives 0.32, which widens the box's
-    5.4 cm faces by ~1.7 cm, and the box's estimate wanders in that band
-    (the phase's ``auto_slack`` reading)."""
+    the box's depth in the box's own barycentric units (0.0506): the
+    fixed slack of the phase's reading. The sensor's automatic slack
+    (the checked run) gives each object its own: the box this, the
+    sphere 0.32 in units of its 9.4 mm edges."""
     box = box_mesh(*OBJECTS_BOX)
     fx = float(default_kinect_camera(8).camera_matrix[0, 0])
     return float(slack_mod.auto_bary_slack(
@@ -1666,11 +1774,12 @@ def objects_run(dev, conf, on_frame=None):
 def phase_objects(dev, slice_tracker, slice_depth):
     """Two objects through ``node.run`` (see the module docstring)."""
     torch.cuda.synchronize()
-    # a reading, not a check: the same run with the automatic slack
-    auto_rmse = objects_run(dev, objects_config())[4]
+    # a reading, not a check: the same run with one fixed slack, the
+    # box's own automatic one, for both meshes
+    slack = box_slack()
+    fixed_rmse = objects_run(dev, objects_config(slack))[4]
     torch.cuda.synchronize()
     held_before = torch.cuda.memory_allocated()
-    slack = box_slack()
     per_frame, levels, saved = [], [], {}
 
     def watch(tracker):
@@ -1686,8 +1795,14 @@ def phase_objects(dev, slice_tracker, slice_depth):
     for w in WRAPPERS.values():
         w.launches = 0
     tracker, source, traj, run, rmse = objects_run(
-        dev, objects_config(slack), watch)
+        dev, objects_config(), watch)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
+    check(tracker.sensor.bary_slack is None,
+          "objects: the checked run does not take the automatic slack")
+    tri_slack = tracker.sensor.triangle_slack(tracker.belief.states)
+    first = np.cumsum([0] + [m.padded_triangles
+                             for m in tracker.meshes[:-1]]).tolist()
+    auto_slack = [float(tri_slack[i]) for i in first]
     prev = {k: 0 for k in WRAPPERS}
     for i, counts in enumerate(per_frame):
         got = {k: counts[k] - prev[k] for k in WRAPPERS}
@@ -1721,11 +1836,13 @@ def phase_objects(dev, slice_tracker, slice_depth):
           "launches_per_frame": OBJECTS_LAUNCHES_PER_FRAME,
           "levels_taken": {str(lv): levels.count(lv)
                            for lv in sorted(set(levels))},
-          "bary_slack": slack,
+          "bary_slack": "automatic, per object",
+          "auto_slack_last_frame": auto_slack,
           "median_edges_m": [slack_mod.median_edge([m])
                              for m in tracker.meshes],
           "position_rmse_m_last_frames": rmse,
-          "auto_slack_position_rmse_m_last_frames": auto_rmse,
+          "fixed_slack": slack,
+          "fixed_slack_position_rmse_m_last_frames": fixed_rmse,
           "last_frames": OBJECTS_LAST_FRAMES,
           "position_rmse_m_all_frames": np.sqrt(np.mean(
               run.position_errors() ** 2, axis=0)).tolist(),
@@ -3213,9 +3330,12 @@ def scale_steps(dev, comm, tracker, traj):
 def marked_block(dev, tracker, block, rank):
     """This rank's start block for the exchange checks: all particles at
     the start pose (a still transition keeps them there, so the weights
-    are the skew given) and a map whose columns differ, by a seeded draw,
+    are the skew given), a map whose columns differ, by a seeded draw,
     only off the object's silhouette (dilated by 3 pixels), where the
-    sensor never changes a row: a wrong parent shows in the map."""
+    sensor never changes a row (a wrong parent shows in the map), and
+    on those rows lazy ages drawn per rank (1-6 frames, plus the rank),
+    so that the two ranks' ages differ where no particle's likelihood
+    reads them."""
     cam = tracker.camera
     z = raycast.raycast_depth(tracker.meshes[0], block.states[0, 0, :7],
                               cam.rays)
@@ -3228,15 +3348,43 @@ def marked_block(dev, tracker, block, rank):
     rows = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
     rows[:grown.shape[0]] = ~grown
     q = torch.where(rows[:, None], marks, q)
+    age = torch.where(rows, torch.randint(1, 7, age.shape, generator=g,
+                                          device=dev) + rank, 0).float()
     states = block.states[:1].expand_as(block.states).clone()
     return rbcpf.ParticleBelief(states, block.log_weights.clone(),
                                 (q, age))
 
 
-def scale_rank(rank, world, port, out_dir, device):
+def home_columns(comm, tracker, dt, trans, start, z, noise):
+    """What a one-object step's exchange starts from, gathered over the
+    ranks in rank order: the proposal's states (P, 1, 13) and the
+    sensor's committed map materialized, (P, N) float32 (from a copy of
+    ``start``: the sensor writes the map in place)."""
+    states = rbcpf.propose_block(start.states, 0, dt, trans, noise[0])
+    _, leaf = tracker.sensor(states, copy_leaf(start.occlusion), z, dt)
+    pn = tracker.sensor.occlusion_as_pn(leaf, start.num_particles)
+    return (comm.all_gather(states, tiled=True),
+            comm.all_gather(pn.contiguous(), tiled=True))
+
+
+def parents_by_state(home_states, states):
+    """Each offspring's parent: the row of the gathered proposals its
+    state equals bit for bit (the proposal's velocity noise makes the
+    rows distinct); None if a row has no parent or two rows are equal."""
+    rows = home_states.reshape(home_states.shape[0], -1).cpu().numpy()
+    index = {r.tobytes(): i for i, r in enumerate(rows)}
+    if len(index) != rows.shape[0]:
+        return None
+    out = [index.get(r.tobytes()) for r in
+           states.reshape(states.shape[0], -1).cpu().numpy()]
+    return None if None in out else torch.tensor(out, device=states.device)
+
+
+def scale_rank(rank, world, port, out_dir, device, compare=False):
     """One of two gloo ranks sharing the card (started with ``spawn``):
     the exchanges against all_gather on skewed forced frames, times and
-    traffic per mode, the dry run. Writes ``rank<r>.json``; raises on a
+    traffic per mode, the dry run; with ``compare`` (``--compare scale``)
+    the times and traffic alone. Writes ``rank<r>.json``; raises on a
     failed check (the parent sees the exit code)."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -3244,7 +3392,7 @@ def scale_rank(rank, world, port, out_dir, device):
     comm = comm_mod.init_process_group("gloo", rank, world, port,
                                        SCALE_GROUP_TIMEOUT_S)
     L = P // world
-    for w in WRAPPERS.values():
+    for w in ([] if compare else all_wrappers().values()):
         w.launches = 0
     kernels.lineage_gather.two_width_launches = 0
     tracker, traj, block = scale_scene(dev, P, rank, world)
@@ -3255,8 +3403,11 @@ def scale_rank(rank, world, port, out_dir, device):
     still = transition.make_transition_params(1e-6, 1e-6, 0.0, device=dev)
     idx = torch.arange(rank * L, (rank + 1) * L, device=dev)
     frames = {
-        # within one hop, under the capacity: the counts buffers carry it
-        "fits": 0.4 * torch.sin(idx.float()),
+        # within one hop, under the capacity: rank 1's particles weigh
+        # e^0.1 more, so ~2.5 % of the offspring (~250 at 10k) on rank 0
+        # descend from rank 1, fewer distinct parents than C = 640: the
+        # counts buffers carry them
+        "fits": 0.4 * torch.sin(idx.float()) + 0.1 * rank,
         # rank 0 weighs nothing: its offspring descend from ~2,500
         # distinct particles of rank 1, more than C = 640: the ring runs
         "overflow": (torch.full((L,), -500.0, device=dev) if rank == 0
@@ -3267,12 +3418,15 @@ def scale_rank(rank, world, port, out_dir, device):
     gs = torch.Generator(device=dev)
     gs.manual_seed(SEED + 100)
     res = {"rank": rank, "frames": {}}
-    for fname, lw in frames.items():
+    for fname, lw in ({} if compare else frames).items():
         noise = [rbcpf.BlockNoise(
             e1=torch.randn((L, 6), generator=g, device=dev),
             e2=torch.randn((L, 6), generator=g, device=dev),
             u=torch.rand((), generator=gs, device=dev))]
         outs, rec = {}, {}
+        start = dataclasses.replace(base_block, log_weights=lw.clone())
+        home_states, home_occ = home_columns(comm, tracker, tracker._dt,
+                                             still, start, z, noise)
         for mode in dist_filter.EXCHANGES:
             step = dist_filter.make_distributed_step(
                 comm, tracker.sensor, still, tracker._dt,
@@ -3303,15 +3457,60 @@ def scale_rank(rank, world, port, out_dir, device):
             rec[mode]["bit_equal"] = same
             rec[mode]["age_equal"] = torch.equal(b.occlusion[1],
                                                  ref.occlusion[1])
+            check(rec[mode]["age_equal"], f"scale: {mode}'s ages differ "
+                  f"from all_gather's on rank {rank} ({fname})")
+            # each offspring's materialized column against its parent's on
+            # the parent's home rank: one rounding to bfloat16
+            parents = parents_by_state(home_states, b.states)
+            check(parents is not None, f"scale: {mode}: offspring without "
+                  f"a parent among the proposals on rank {rank} ({fname})")
+            err = float((tracker.sensor.occlusion_as_pn(b.occlusion, L)
+                         - home_occ[parents]).abs().max())
+            check(err <= SCALE_HOME_ATOL, f"scale: {mode}: a materialized "
+                  f"column {err} off its parent's on rank {rank} ({fname})")
+            rec[mode]["home_column_max_abs_err"] = err
+            rec[mode]["offspring_from_other_rank"] = int(
+                (torch.div(parents, L, rounding_mode="floor") != rank).sum())
         res["frames"][fname] = rec
-    check(res["frames"]["fits"]["counts"]["path"] == ["counts"],
-          f"scale: the fitting frame took {res['frames']['fits']}")
-    check(res["frames"]["overflow"]["counts"]["path"] == ["ring"],
-          "scale: the overflow frame did not fall back to the ring")
+    if not compare:
+        check(res["frames"]["fits"]["counts"]["path"] == ["counts"],
+              f"scale: the fitting frame took {res['frames']['fits']}")
+        check(res["frames"]["overflow"]["counts"]["path"] == ["ring"],
+              "scale: the overflow frame did not fall back to the ring")
 
     # ms per step per mode on the fitting frame's weights
-    res["ms_per_step"], res["bytes_per_step"], res["staging_s_per_step"] = \
-        {}, {}, {}
+    if compare:
+        scale_compare_times(res, comm, tracker, still, base_block, z,
+                            frames["fits"], rank)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+        comm.barrier()
+        return
+    (res["ms_per_step"], res["bytes_per_step"],
+     res["staging_s_per_step"]) = scale_step_times(
+        comm, tracker, still, base_block, z, frames["fits"])
+    res["capture"] = False
+    res["capture_true_raises"] = raises(
+        ValueError, lambda: dist_filter.make_distributed_step(
+            comm, tracker.sensor, still, tracker._dt, capture=True))
+    check(res["capture_true_raises"],
+          "scale: capture=True over gloo did not raise")
+    res["dryrun"] = dryrun.dryrun(dev, SCALE_GROUP_TIMEOUT_S)
+    torch.cuda.synchronize()
+    res["launches"] = {k: w.launches for k, w in all_wrappers().items()}
+    res["two_width_launches"] = kernels.lineage_gather.two_width_launches
+    check(res["two_width_launches"] > 0,
+          f"scale: the two-width gather never launched on rank {rank}")
+    check(res["launches"]["age_pixel_rows"] > 0,
+          f"scale: the row aging never launched on rank {rank}")
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    comm.barrier()
+
+
+def scale_step_times(comm, tracker, still, block, z, lw):
+    """Per mode: the median ms of a step over ``SCALE_STEPS`` after
+    ``SCALE_WARMUP`` (each on fresh copies of ``block`` with weights
+    ``lw``, synchronised), bytes sent and staging seconds per step."""
+    ms_per, bytes_per, staging_per = {}, {}, {}
     for mode in dist_filter.EXCHANGES:
         step = dist_filter.make_distributed_step(
             comm, tracker.sensor, still, tracker._dt,
@@ -3320,8 +3519,8 @@ def scale_rank(rank, world, port, out_dir, device):
         bytes0, stage0 = sum(comm.bytes_sent.values()), comm.staging_seconds
         for i in range(SCALE_WARMUP + SCALE_STEPS):
             start = dataclasses.replace(
-                base_block, log_weights=frames["fits"].clone(),
-                occlusion=tuple(x.clone() for x in base_block.occlusion))
+                block, log_weights=lw.clone(),
+                occlusion=tuple(x.clone() for x in block.occlusion))
             if i == SCALE_WARMUP:
                 bytes0 = sum(comm.bytes_sent.values())
                 stage0 = comm.staging_seconds
@@ -3331,28 +3530,64 @@ def scale_rank(rank, world, port, out_dir, device):
             torch.cuda.synchronize()
             if i >= SCALE_WARMUP:
                 ms.append(1e3 * (time.perf_counter() - t0))
-        res["ms_per_step"][mode] = statistics.median(ms)
-        res["bytes_per_step"][mode] = (sum(comm.bytes_sent.values())
-                                       - bytes0) / SCALE_STEPS
-        res["staging_s_per_step"][mode] = ((comm.staging_seconds - stage0)
-                                           / SCALE_STEPS)
-    res["capture"] = False
-    res["capture_true_raises"] = raises(
-        ValueError, lambda: dist_filter.make_distributed_step(
-            comm, tracker.sensor, still, tracker._dt, capture=True))
-    check(res["capture_true_raises"],
-          "scale: capture=True over gloo did not raise")
-    res["dryrun"] = dryrun.dryrun(dev, SCALE_GROUP_TIMEOUT_S)
+        ms_per[mode] = statistics.median(ms)
+        bytes_per[mode] = (sum(comm.bytes_sent.values()) - bytes0) / SCALE_STEPS
+        staging_per[mode] = (comm.staging_seconds - stage0) / SCALE_STEPS
+    return ms_per, bytes_per, staging_per
+
+
+def scale_compare_times(res, comm, tracker, still, block, z, lw, rank):
+    """``--compare scale``: :func:`scale_step_times` in turns with the
+    step as it is and with the sensor's materialization replaced by the
+    identity (a tree without one times the same step twice; the ages are
+    then wrong: a timing only), averaged per variant; then
+    ``torch.profiler`` over three ``counts`` steps as they are (host
+    time by operator, the table to ``build/profile_scale_rank<r>.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sensor = tracker.sensor
+    turns = {"as_is": [], "no_materialization": []}
+    for variant in ("as_is", "no_materialization", "no_materialization",
+                    "as_is"):
+        if variant == "as_is":
+            sensor.__dict__.pop("materialize_occlusion", None)
+        else:
+            sensor.materialize_occlusion = lambda occ, now: occ
+        turns[variant].append(scale_step_times(comm, tracker, still, block,
+                                               z, lw))
+    sensor.__dict__.pop("materialize_occlusion", None)
+    for variant, runs in turns.items():
+        suffix = "" if variant == "as_is" else "_no_materialization"
+        for i, key in enumerate(("ms_per_step", "bytes_per_step",
+                                 "staging_s_per_step")):
+            res[key + suffix] = {m: statistics.mean(r[i][m] for r in runs)
+                                 for m in runs[0][i]}
+        res["ms_per_step_turns" + suffix] = [r[0] for r in runs]
+    step = dist_filter.make_distributed_step(
+        comm, sensor, still, tracker._dt, max_kl_divergence=-1.0,
+        exchange="counts", seed=SEED)
+    starts = [dataclasses.replace(
+        block, log_weights=lw.clone(),
+        occlusion=tuple(x.clone() for x in block.occlusion))
+        for _ in range(4)]
+    step(starts[0], z)
     torch.cuda.synchronize()
-    res["launches"] = {k: w.launches for k, w in WRAPPERS.items()}
-    res["two_width_launches"] = kernels.lineage_gather.two_width_launches
-    check(res["two_width_launches"] > 0,
-          f"scale: the two-width gather never launched on rank {rank}")
-    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
-    comm.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for start in starts[1:]:
+            step(start, z)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    (BUILD_DIR / f"profile_scale_rank{rank}.txt").write_text(
+        events.table(sort_by="cpu_time_total", row_limit=60))
+    top = sorted(events, key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:12]
+    res["counts_profile_self_cpu_ms_per_step"] = {
+        e.key: e.self_cpu_time_total / 1e3 / 3 for e in top}
 
 
-def scale_two_ranks(dev):
+def scale_two_ranks(dev, compare=False):
     """Two gloo ranks sharing the card, collectives staged through pinned
     host memory; the parent fails if a rank fails or outlives its time."""
     out_dir = Path(tempfile.mkdtemp(prefix="dbt_scale"))
@@ -3360,7 +3595,7 @@ def scale_two_ranks(dev):
     port = comm_mod.free_port()
     procs = [ctx.Process(target=scale_rank,
                          args=(r, SCALE_RANKS, port, str(out_dir),
-                               str(dev)))
+                               str(dev), compare))
              for r in range(SCALE_RANKS)]
     t0 = time.perf_counter()
     try:
@@ -3405,6 +3640,12 @@ def phase_scale(dev, card):
         torch.distributed.destroy_process_group()
     one_rank_s = time.perf_counter() - t0
     ranks, two_s = scale_two_ranks(dev)
+    for fname in ranks[0]["frames"]:
+        crossed = sum(r["frames"][fname]["counts"]["offspring_from_other_rank"]
+                      for r in ranks)
+        check(crossed > 0, f"scale: no column crossed ranks ({fname})")
+    two_rank_launches = {k: sum(r["launches"][k] for r in ranks)
+                         for k in all_wrappers()}
     emit({"phase": "scale", "nvidia_smi": card,
           "cdf_differing_calls": cdf,
           "one_rank": {"backend": SCALE_BACKEND, "world": 1,
@@ -3420,8 +3661,20 @@ def phase_scale(dev, card):
                         "world": SCALE_RANKS, "particles_per_rank":
                         P // SCALE_RANKS, "capacity":
                         dist_filter.counts_capacity(P // SCALE_RANKS),
-                        "seconds": two_s, "ranks": ranks}})
-    return launches, graph_launches
+                        "seconds": two_s, "launches": two_rank_launches,
+                        "ranks": ranks}})
+    return launches, graph_launches, two_rank_launches
+
+
+def phase_scale_steps(dev):
+    """``--compare scale``: the two gloo ranks' ms, bytes and staging
+    seconds per step per mode (the scale phase's times), without its
+    checks, as they are and without the materialization
+    (:func:`scale_compare_times`)."""
+    ranks, seconds = scale_two_ranks(dev, compare=True)
+    emit({"phase": "scale_steps", "particles_per_rank": P // SCALE_RANKS,
+          "seconds": seconds, "ranks": [
+              {k: v for k, v in r.items() if k != "frames"} for r in ranks]})
 
 
 def stiff_leg(entry):
@@ -3500,14 +3753,20 @@ def phase_eval(dev, card):
 
 
 def main(argv=None):
-    compare = "--compare" in (sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    compare = "--compare" in argv
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
     if compare:
-        # what a comparison of two commits reads, in one run of each
-        phase_rows(dev)
-        phase_slice(dev)
+        # what a comparison of two commits reads, in one run of each: the
+        # phases named after --compare, else all of them
+        phases = {"fused": phase_fused, "rows": phase_rows,
+                  "slice": phase_slice, "scale": phase_scale_steps}
+        named = [a for a in argv if a != "--compare"] or list(phases)
+        check(set(named) <= set(phases), f"--compare takes {list(phases)}")
+        for name in named:
+            phases[name](dev)
         emit(ok_line())
         return 0
     kres = phase_kernels(dev)
@@ -3523,17 +3782,24 @@ def main(argv=None):
     phase_cli(dev, kind="gaussian")
     phase_deferred(dev)
     live_launches = phase_live(dev, card)
-    scale_launches, scale_graph_launches = phase_scale(dev, card)
+    scale_launches, scale_graph_launches, two_rank_launches = phase_scale(
+        dev, card)
     eval_launches, eval_failed = phase_eval(dev, card)
+    # a tracker kernel's main path is the slice; the row aging's, the two
+    # gloo ranks' exchanges (None: a path that does not count it)
+    main_launches = {**launches, **{k: two_rank_launches[k]
+                                    for k in kernels.EXCHANGE_WRAPPERS}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "live_launches": live_launches[name],
-         "scale_launches": scale_launches[name],
-         "scale_graph_launches": scale_graph_launches[name],
-         "objects_launches": objects_launches[name],
-         "options_launches": options_launches[name],
-         "graph_launches": graph_launches[name],
-         "eval_launches": eval_launches[name],
+         "launches": main_launches[name],
+         "two_rank_launches": two_rank_launches[name],
+         "live_launches": live_launches.get(name),
+         "scale_launches": scale_launches.get(name),
+         "scale_graph_launches": scale_graph_launches.get(name),
+         "objects_launches": objects_launches.get(name),
+         "options_launches": options_launches.get(name),
+         "graph_launches": graph_launches.get(name),
+         "eval_launches": eval_launches.get(name),
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},

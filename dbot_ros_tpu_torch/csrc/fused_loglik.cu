@@ -6,7 +6,8 @@
 // raycast_pallas.py:192), launched by `fused_loglik_packed` (:640).
 //
 // For each pixel j and particle p: Möller–Trumbore against the K
-// candidate triangles cand[j, :] (barycentric slack, min depth), the
+// candidate triangles cand[j, :] (each with its own barycentric slack,
+// tri_slack[cand[j, k]]: the slack of its object's mesh; min depth), the
 // closed-form lazy aging of the occlusion prior by ages[j] + dt, the
 // visible / occluded / background beam densities with NaN point masses
 // (truncation normalizer taken as 1), the occlusion posterior stored in
@@ -18,7 +19,8 @@
 //   occ    (n, p_pad) bf16|f32  pixel-major occlusion map (one pixel's
 //                               particles are contiguous)
 //   z (n) f32 with NaN, cand (n, K) i32, rays (n, 3) f32, ages (n) f32,
-//   params (16) f32 (make_params_vec), occ_out like occ,
+//   params (16) f32 (make_params_vec; entry 15 is not read),
+//   tri_slack (T) f32, occ_out like occ,
 //   partial (n_groups, p_pad) f32 scratch, loglik (p_pad) f32.
 //
 // What bounds it on the card. By the bytes it has to move (the slabs the
@@ -49,8 +51,9 @@
 //   * the terms that depend on the pixel only (validity flags, the aged
 //     chain factor, the occluded body's numerator, the background
 //     density and its log, whether the pixel names its predecessor's
-//     candidates) are computed once per pixel by one thread, with the
-//     same operations in the same order, into shared memory;
+//     candidates, its candidates' slacks) are computed or read once per
+//     pixel by one thread, with the same operations in the same order,
+//     into shared memory;
 //   * where a warp vote finds no lane on the silhouette the beam block is
 //     skipped: log p = log(background), posterior = aged prior, exactly
 //     what the selects would have kept; the division, the visible body
@@ -128,6 +131,7 @@ struct PixelTerms {
   float w_occ[kBatch];    // tail_weight * (valid ? 1/range : 0)
   float log_bg[kBatch];   // log max(background density, tiny)
   int cand[kBatch * kMaxCached];
+  float slack[kBatch * kMaxCached];  // tri_slack of each candidate
 };
 
 // Depth along the ray to one triangle's plane, kBig where the ray misses
@@ -251,6 +255,7 @@ fused_loglik_kernel(const float* __restrict__ slabs,
                     const float* __restrict__ rays,
                     const float* __restrict__ ages,
                     const float* __restrict__ params,
+                    const float* __restrict__ tri_slack,
                     OccT* __restrict__ occ_out, float* __restrict__ partial,
                     int n, int K, int p_pad) {
   __shared__ __align__(16) PixelTerms px;
@@ -279,7 +284,6 @@ fused_loglik_kernel(const float* __restrict__ slabs,
   const float occ_lg = params[12];
   const float occ_dtf = params[13];
   const float occ_sgn = params[14];
-  const float slack = params[15];
 
   // this block's pixels: sub-runs g, g + n_groups, g + 2 n_groups, ...
   const int n_sub = (n + kSubRun - 1) / kSubRun;
@@ -334,6 +338,7 @@ fused_loglik_kernel(const float* __restrict__ slabs,
           for (int k = 0; k < kSlots; ++k) {
             const int id = cand[j * kSlots + k];
             px.cand[e * kSlots + k] = id;
+            px.slack[e * kSlots + k] = tri_slack[id];
             same = same && (id == cand[(e > 0 ? jp : j) * kSlots + k]);
           }
           flags |= same ? kSameIds : 0;
@@ -426,7 +431,8 @@ fused_loglik_kernel(const float* __restrict__ slabs,
               }
               if (slot_dead[k]) continue;
               all_dead = false;
-              t = fminf(t, hit_depth(slot[k], dx, dy, dz, slack));
+              t = fminf(t, hit_depth(slot[k], dx, dy, dz,
+                                     px.slack[e * kSlots + k]));
             }
           }
           if (e + 1 < batch) {
@@ -438,9 +444,10 @@ fused_loglik_kernel(const float* __restrict__ slabs,
           const float dy = px.dy[e];
           const float dz = px.dz[e];
           for (int k = 0; k < K; ++k) {
-            load_slab(slabs, cand[j * K + k], stride, p, slot[0]);
+            const int tid = cand[j * K + k];
+            load_slab(slabs, tid, stride, p, slot[0]);
             if (cannot_be_hit(slot[0])) continue;
-            t = fminf(t, hit_depth(slot[0], dx, dy, dz, slack));
+            t = fminf(t, hit_depth(slot[0], dx, dy, dz, tri_slack[tid]));
           }
         }
         if (!pixel) continue;
@@ -511,8 +518,9 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
 template <typename OccT>
 int launch(const float* slabs, const OccT* occ, const float* z,
            const int* cand, const float* rays, const float* ages,
-           const float* params, OccT* occ_out, float* partial, float* loglik,
-           int n, int K, int p_pad, int n_groups, cudaStream_t stream) {
+           const float* params, const float* tri_slack, OccT* occ_out,
+           float* partial, float* loglik, int n, int K, int p_pad,
+           int n_groups, cudaStream_t stream) {
   if (n <= 0 || p_pad <= 0 || K <= 0 || n_groups <= 0
       || n_groups > 65535) {
     return cudaErrorInvalidValue;
@@ -521,7 +529,8 @@ int launch(const float* slabs, const OccT* occ, const float* z,
   const dim3 grid(p_tiles, n_groups);
 #define DBOT_FUSED_LAUNCH(KC)                                              \
   fused_loglik_kernel<OccT, KC><<<grid, kThreads, 0, stream>>>(            \
-      slabs, occ, z, cand, rays, ages, params, occ_out, partial, n, K, p_pad)
+      slabs, occ, z, cand, rays, ages, params, tri_slack, occ_out, partial, \
+      n, K, p_pad)
   switch (K) {
     case 1: DBOT_FUSED_LAUNCH(1); break;
     case 2: DBOT_FUSED_LAUNCH(2); break;
@@ -583,13 +592,15 @@ int dbot_fused_loglik_groups(int n, int K, int p_pad) {
 int dbot_fused_loglik_bf16(const void* slabs, const void* occ, const void* z,
                            const void* cand, const void* rays,
                            const void* ages, const void* params,
-                           void* occ_out, void* partial, void* loglik, int n,
-                           int K, int p_pad, int n_groups, void* stream) {
+                           const void* tri_slack, void* occ_out,
+                           void* partial, void* loglik, int n, int K,
+                           int p_pad, int n_groups, void* stream) {
   return launch<__nv_bfloat16>(
       static_cast<const float*>(slabs),
       static_cast<const __nv_bfloat16*>(occ), static_cast<const float*>(z),
       static_cast<const int*>(cand), static_cast<const float*>(rays),
       static_cast<const float*>(ages), static_cast<const float*>(params),
+      static_cast<const float*>(tri_slack),
       static_cast<__nv_bfloat16*>(occ_out), static_cast<float*>(partial),
       static_cast<float*>(loglik), n, K, p_pad, n_groups,
       static_cast<cudaStream_t>(stream));
@@ -597,14 +608,16 @@ int dbot_fused_loglik_bf16(const void* slabs, const void* occ, const void* z,
 
 int dbot_fused_loglik_f32(const void* slabs, const void* occ, const void* z,
                           const void* cand, const void* rays,
-                          const void* ages, const void* params, void* occ_out,
+                          const void* ages, const void* params,
+                          const void* tri_slack, void* occ_out,
                           void* partial, void* loglik, int n, int K,
                           int p_pad, int n_groups, void* stream) {
   return launch<float>(
       static_cast<const float*>(slabs), static_cast<const float*>(occ),
       static_cast<const float*>(z), static_cast<const int*>(cand),
       static_cast<const float*>(rays), static_cast<const float*>(ages),
-      static_cast<const float*>(params), static_cast<float*>(occ_out),
+      static_cast<const float*>(params),
+      static_cast<const float*>(tri_slack), static_cast<float*>(occ_out),
       static_cast<float*>(partial), static_cast<float*>(loglik), n, K, p_pad,
       n_groups, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// Pixel-row gather and scatter on the pixel-major occlusion map, for
-// Hopper (sm_90a). Plain C interface, loaded with ctypes
+// Pixel-row gather, scatter and aging on the pixel-major occlusion map,
+// for Hopper (sm_90a). Plain C interface, loaded with ctypes
 // (dbot_ros_tpu_torch/ops/build.py, wrappers in ops/kernels.py).
 //
 // Replace the Pallas kernels `gather_pixel_rows` (dbot_ros_tpu/ops/
@@ -62,6 +62,21 @@
 // is read once per block. Cold it takes little more than a device copy
 // of the same bytes and about half of `index_copy_`'s time (PERF.md §6),
 // so it keeps the first design.
+//
+// Row aging (`age_rows_kernel`, this port's own: the reference has no
+// such kernel): the lazy map's closed form applied row by row, so that a
+// map can leave its rank with its ages spent (parallel/dist_filter.py,
+// lazy ages):
+//   out[n, c] = clamp(geff[n] == 1 ? q[n, c] : pi + geff[n] · (q[n, c] − pi),
+//                     0, 1)
+// in float32, rounded once to the map's dtype (bfloat16 to nearest even,
+// as PyTorch rounds). Built with -fmad=false, the product and the sum
+// round apart, in the plain version's order (ops/kernels.py,
+// `age_pixel_rows_plain`, whose eager chain is ~9 passes over the map),
+// so the two agree bit for bit. One thread a 16-byte vector (8 bfloat16
+// or 4 float32 values of one row), one read and one write: bound by
+// memory bandwidth, 2 · rows · row_bytes (194 MB, 58 µs at 3.35 TB/s for
+// 4,800 rows of 10,112 bfloat16 particles).
 //
 // The wrappers check that row_bytes is a multiple of 16 and the pointers
 // 16-byte aligned.
@@ -252,6 +267,50 @@ __global__ void scatter_rows_kernel(uint4* __restrict__ q,
   }
 }
 
+// float32 -> bfloat16 bits, to nearest even (c10::BFloat16's rounding)
+__device__ __forceinline__ uint32_t to_bf16(float f) {
+  if (isnan(f)) return 0x7FC0u;
+  const uint32_t u = __float_as_uint(f);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+}
+
+__device__ __forceinline__ float aged(float q, float g, float pi) {
+  const float v = g == 1.0f ? q : pi + g * (q - pi);
+  return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);  // NaN stays NaN
+}
+
+// two bfloat16 values in one word, the lower address in the low half
+__device__ __forceinline__ uint32_t aged_pair(uint32_t w, float g, float pi) {
+  const float lo = __uint_as_float(w << 16);
+  const float hi = __uint_as_float(w & 0xFFFF0000u);
+  return to_bf16(aged(lo, g, pi)) | (to_bf16(aged(hi, g, pi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t aged_word(uint32_t w, float g, float pi,
+                                              bool bf16) {
+  return bf16 ? aged_pair(w, g, pi)
+              : __float_as_uint(aged(__uint_as_float(w), g, pi));
+}
+
+template <bool kBf16>
+__global__ void age_rows_kernel(const uint4* __restrict__ q,
+                                const float* __restrict__ geff,
+                                const float* __restrict__ pi_ptr,
+                                uint4* __restrict__ out,
+                                long long vec_per_row, long long n_vec) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_vec) return;
+  const float g = __ldg(geff + i / vec_per_row);
+  const float pi = __ldg(pi_ptr);
+  uint4 v = __ldg(q + i);
+  v.x = aged_word(v.x, g, pi, kBf16);
+  v.y = aged_word(v.y, g, pi, kBf16);
+  v.z = aged_word(v.z, g, pi, kBf16);
+  v.w = aged_word(v.w, g, pi, kBf16);
+  out[i] = v;
+}
+
 }  // namespace
 
 extern "C" {
@@ -312,6 +371,33 @@ int dbot_scatter_pixel_rows(void* q, const void* vals, const void* sel,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint4*>(q), static_cast<const uint4*>(vals),
       static_cast<const int*>(sel), row_bytes / 16);
+  return cudaGetLastError();
+}
+
+// q and out are (n_rows, row_bytes) row-major, bfloat16 if `bf16`, else
+// float32; geff is (n_rows,) float32 and pi one float32, on the device.
+int dbot_age_pixel_rows(const void* q, const void* geff, const void* pi,
+                        void* out, long long n_rows, long long row_bytes,
+                        int bf16, void* stream) {
+  if (n_rows <= 0 || row_bytes <= 0 || row_bytes % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long vec_per_row = row_bytes / 16;
+  const long long n_vec = n_rows * vec_per_row;
+  const long long grid = (n_vec + kThreads - 1) / kThreads;
+  if (grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qv = static_cast<const uint4*>(q);
+  const auto* gv = static_cast<const float*>(geff);
+  const auto* pv = static_cast<const float*>(pi);
+  auto* ov = static_cast<uint4*>(out);
+  if (bf16) {
+    age_rows_kernel<true><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        qv, gv, pv, ov, vec_per_row, n_vec);
+  } else {
+    age_rows_kernel<false><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        qv, gv, pv, ov, vec_per_row, n_vec);
+  }
   return cudaGetLastError();
 }
 

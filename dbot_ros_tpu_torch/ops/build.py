@@ -36,11 +36,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "dbot_fused_loglik_groups": [_I, _I, _I],
-    "dbot_fused_loglik_bf16": [_VP] * 10 + [_I] * 4 + [_VP],
-    "dbot_fused_loglik_f32": [_VP] * 10 + [_I] * 4 + [_VP],
+    "dbot_fused_loglik_bf16": [_VP] * 11 + [_I] * 4 + [_VP],
+    "dbot_fused_loglik_f32": [_VP] * 11 + [_I] * 4 + [_VP],
     "dbot_gather_pixel_rows": [_VP, _VP, _VP, _I, _I, _LL, _I, _I, _I, _I,
                                _VP],
     "dbot_scatter_pixel_rows": [_VP, _VP, _VP, _I, _LL, _VP],
+    "dbot_age_pixel_rows": [_VP] * 4 + [_LL, _LL, _I, _VP],
     "dbot_lineage_gather_b16": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "dbot_lineage_gather_b32": [_VP, _VP, _VP, _I, _I, _I, _VP],
 }

@@ -259,12 +259,17 @@ def make_sigma_renderer(meshes, rays, height: int, width: int,
       radius: least candidate ring radius in pixels; the rings scale with
         the sigma cloud's pixel footprint per call.
       num_candidates: candidate triangle ids per pixel.
+      bary_slack: one barycentric slack for every mesh; None = the
+        automatic rule per object (ops/slack.py): ``bary_slack_px``
+        pixels at the mean depth of object ``k``'s sigma points, in
+        units of mesh ``k``'s median edge (the reference takes the
+        finest mesh's for every mesh).
     """
     from dbot_ros_tpu_torch.ops import slack as slack_mod
     from dbot_ros_tpu_torch.utils import se3
 
     pitch = slack_mod.ray_pitch(rays, height, width)
-    med_edge = slack_mod.median_edge(meshes)
+    med_edges = [slack_mod.median_edge([m]) for m in meshes]
     rays_sub = rays if pixel_idx is None else rays[pixel_idx]
     meshes = list(meshes)
     bound_r = [float(np.linalg.norm(
@@ -297,7 +302,7 @@ def make_sigma_renderer(meshes, rays, height: int, width: int,
                 slack = float(bary_slack)
             else:
                 slack = slack_mod.auto_bary_slack(
-                    slack_mod.cloud_depth(p[..., 2]), pitch, med_edge,
+                    slack_mod.cloud_depth(p[..., 2]), pitch, med_edges[k],
                     bary_slack_px)
             d = deferred_depth_gather(m, p, rays_sub, cand, slack)
             depth = d if depth is None else torch.minimum(depth, d)

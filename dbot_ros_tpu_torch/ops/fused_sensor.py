@@ -131,15 +131,17 @@ def pack_constants(mesh: TriangleMesh, poses, p_pad: int, features=None,
     return (M.reshape(T * 10, 37) @ features).reshape(T, 10, p_pad)
 
 
-def make_params_vec(bp: BeamParams, op: OcclusionParams, dt_frames,
-                    bary_slack=0.0):
+def make_params_vec(bp: BeamParams, op: OcclusionParams, dt_frames):
     """Model parameters + occlusion-chain coefficients as (16,) f32 on
     the parameters' device, with no copy from the host and no host read
-    (so a CUDA graph can hold it): ``dt_frames`` and ``bary_slack`` are
-    numbers or 0-d tensors on that device.
+    (so a CUDA graph can hold it): ``dt_frames`` is a number or a 0-d
+    tensor on that device.
 
     The kernel ages the chain as ``sign(g)·exp(log|g|·(age + dt_frames))``;
     nonzero ages need g >= 0 (FusedSensor enables lazy aging only then).
+    Entry 15 is the reference's slot for its one barycentric slack; the
+    kernel reads a slack per triangle instead (``tri_slack``), and the
+    slot stays 0.
     """
     g = op.p_occluded_occluded - op.p_occluded_visible
     pi = op.p_occluded_visible / torch.clamp_min(1.0 - g, 1e-12)
@@ -152,12 +154,13 @@ def make_params_vec(bp: BeamParams, op: OcclusionParams, dt_frames,
         bp.max_depth, bp.exponential_rate, bp.p_invalid_occluded,
         bp.p_invalid_visible, bp.p_invalid_background, pi, gdt,
         1.0 / (bp.max_depth - bp.min_depth),
-        lg, dt_frames, torch.sign(g), as_dt(bary_slack, g.device),
+        lg, dt_frames, torch.sign(g), torch.zeros_like(g),
     ]).to(torch.float32)
 
 
 def fused_loglik_packed(gt, occ, z_obs, cand, rays, params_vec,
-                        num_particles: int, nb: int = 64, ages=None):
+                        num_particles: int, nb: int = 64, ages=None, *,
+                        tri_slack):
     """Run the fused kernel on pre-packed slabs, as the reference does.
 
     Pixels are padded to ``n_pad = round_up(N, nb)`` with NaN depth and
@@ -167,7 +170,10 @@ def fused_loglik_packed(gt, occ, z_obs, cand, rays, params_vec,
     Args:
       gt: (T, 10, p_pad) slabs; occ: (n_pad, p_pad) map rows;
       z_obs: (N,); cand: (N, K) ids into ``gt``; rays: (N, 3);
-      params_vec: (16,); ages: optional (N,) staleness (None = fresh).
+      params_vec: (16,); ages: optional (N,) staleness (None = fresh);
+      tri_slack: (T,) barycentric slack of each slab's triangle, required
+        (the reference's one ``params_vec[15]`` is that number expanded
+        to (T,)).
     Returns (loglik (P,), occ_post (n_pad, p_pad)).
     """
     N, K = cand.shape
@@ -187,7 +193,8 @@ def fused_loglik_packed(gt, occ, z_obs, cand, rays, params_vec,
         ages = torch.cat([ages, ages.new_zeros((pad,))])
     ll, occ_post = kernels.fused_loglik(
         gt, occ, z_obs.contiguous(), cand.contiguous(), rays.contiguous(),
-        ages.contiguous(), params_vec)
+        ages.contiguous(), params_vec,
+        tri_slack.to(torch.float32).contiguous())
     return ll[:num_particles], occ_post
 
 
@@ -245,9 +252,13 @@ class FusedSensor:
     of its particles, or with ``reference_poses=R > 1`` at the R
     index-strided particles ``(r·P)//R`` (one per block of a
     multi-hypothesis cloud, whose mean is a ghost pose), min-combined.
-    The barycentric slack of the inside-test is ``bary_slack`` when
-    given (``0.0``: exact), else the automatic rule (``bary_slack_px``
-    pixels of footprint at the cloud's depth, ops/slack.py).
+    The barycentric slack of the inside-test is ``bary_slack`` for every
+    triangle when given (``0.0``: exact), else the automatic rule per
+    object (ops/slack.py): ``bary_slack_px`` pixels of footprint at the
+    mean depth of object ``k``'s particles, in units of mesh ``k``'s own
+    median edge, for the triangles of mesh ``k``. (The reference
+    measures every mesh in the finest mesh's units at the deepest
+    object's depth; with one object the two rules agree.)
 
     ``lineage_gather`` takes the reference's four mode names; all select
     the port's one kernel (``kernels.lineage_gather``): they compute the
@@ -307,8 +318,13 @@ class FusedSensor:
         self.reference_poses = int(reference_poses)
         self.bary_slack = None if bary_slack is None else float(bary_slack)
         self.bary_slack_px = float(bary_slack_px)
-        self._min_median_edge = slack_mod.median_edge(self.meshes)
+        self._median_edges = [slack_mod.median_edge([m])
+                              for m in self.meshes]
         self._fx = float(self.camera.camera_matrix[0, 0])
+        # a fixed slack is one number for every union triangle
+        self._fixed_slack = None if bary_slack is None else torch.full(
+            (self.union_triangles,), self.bary_slack, dtype=torch.float32,
+            device=self.device)
         self.occ_dtype = occ_dtype
         g = float(self.op.p_occluded_occluded - self.op.p_occluded_visible)
         self._lazy = g >= 0.0
@@ -370,8 +386,10 @@ class FusedSensor:
         """Concatenate maps of ``num_each`` particles each along the
         particle (column) axis; block ``s`` starts at column
         ``s * particle_stride(num_each)``. The ages are those of the first
-        block, as in the reference (see ROADMAP.md §C on ages that differ
-        between ranks)."""
+        block, as in the reference: the blocks' ages must agree (the
+        distributed exchanges first materialize the maps with
+        :meth:`materialize_occlusion` on a frame where columns cross
+        ranks, parallel/dist_filter.py)."""
         qs = [self._unpack_occ(b)[0] for b in blocks]
         stride = self.particle_stride(num_each)
         if any(q.shape[1] != stride for q in qs):
@@ -384,7 +402,8 @@ class FusedSensor:
     def where_occlusion(self, particle_mask, a, b):
         """Per-particle select between two maps: column ``p`` from ``a``
         where ``particle_mask[p]``, else from ``b``; padding columns take
-        ``b``. The ages are those of ``a``, as in the reference."""
+        ``b``. The ages are those of ``a``, as in the reference: the two
+        maps' ages must agree (see :meth:`concat_occlusion`)."""
         qa, age_a = self._unpack_occ(a)
         qb, _ = self._unpack_occ(b)
         m = torch.zeros((qa.shape[1],), dtype=torch.bool, device=qa.device)
@@ -392,20 +411,39 @@ class FusedSensor:
         out = torch.where(m[None, :], qa, qb)
         return out if age_a is None else (out, age_a)
 
+    def _chain(self, age):
+        """(geff, pi): the lazy closed form's factor of every pixel of
+        ``age`` (1 where its age is 0) and the chain's stationary
+        occlusion, float32 on the device."""
+        g = self.op.p_occluded_occluded - self.op.p_occluded_visible
+        pi = self.op.p_occluded_visible / torch.clamp_min(1.0 - g, 1e-12)
+        geff = torch.exp(torch.log(torch.clamp_min(g, 1e-30)) * age)
+        return geff, pi
+
     def occlusion_as_pn(self, occ, num_particles):
         """The occlusion state as (P, N) float32, materialized to 'now'
         (lazy ages applied via the closed-form propagation)."""
         q, age = self._unpack_occ(occ)
-        N = self.camera.num_pixels
-        q = occ_from_map(q.to(torch.float32), N, num_particles)
+        q = q.to(torch.float32)
+        if age is not None:
+            q = kernels.age_pixel_rows_plain(q, *self._chain(age))
+        return occ_from_map(q, self.camera.num_pixels, num_particles)
+
+    def materialize_occlusion(self, occ, now):
+        """The lazy leaf with its ages applied to the map where ``now`` (a
+        0-d bool tensor on the map's device), in the map's dtype, and its
+        ages zero; where not ``now`` (or for a raw map) the leaf's values
+        as they were, bit for bit. Every value is :meth:`occlusion_as_pn`'s,
+        rounded once to the map's dtype. One pass over the map
+        (``kernels.age_pixel_rows``), new buffers, no host read: the
+        distributed exchanges call it before columns cross ranks, so that
+        a column never meets another rank's ages."""
+        q, age = self._unpack_occ(occ)
         if age is None:
-            return q
-        g = self.op.p_occluded_occluded - self.op.p_occluded_visible
-        pi = self.op.p_occluded_visible / torch.clamp_min(1.0 - g, 1e-12)
-        geff = torch.exp(torch.log(torch.clamp_min(g, 1e-30)) * age[:N])
-        q_now = pi + geff[None, :] * (q - pi)
-        return torch.clamp(torch.where(geff[None, :] == 1.0, q, q_now),
-                           0.0, 1.0)
+            return occ
+        geff, pi = self._chain(torch.where(now, age, 0.0))
+        return (kernels.age_pixel_rows(q, geff, pi),
+                torch.where(now, 0.0, age))
 
     @property
     def union_triangles(self) -> int:
@@ -547,25 +585,36 @@ class FusedSensor:
         :meth:`plan_device`, then :meth:`choose_level`."""
         return self.choose_level(self.plan_device(states, z_obs, dt))
 
-    def plan_device(self, states, z_obs, dt) -> "SensorPlan":
-        """The part of :meth:`plan` before its host read: the candidate
-        pass, the compaction bookkeeping, the slack and the model
-        parameters, all on the device (``dt`` a number or a 0-d tensor).
-        It reads nothing back, so a CUDA graph can hold it; the plan's
-        ``level`` is None until :meth:`choose_level`."""
+    def triangle_slack(self, states):
+        """The inside-test's barycentric slack of every union triangle,
+        (Tu,) float32 on the device with no host read: the fixed
+        ``bary_slack``, else object ``k``'s automatic slack (ops/slack.py)
+        on the triangles of mesh ``k``."""
         from dbot_ros_tpu_torch.ops import slack as slack_mod
 
+        if self._fixed_slack is not None:
+            return self._fixed_slack
+        zbar = slack_mod.cloud_depth(states[..., 2])        # (K,)
+        return torch.cat([
+            slack_mod.auto_bary_slack(zbar[k], 1.0 / self._fx, edge,
+                                      self.bary_slack_px).expand(
+                mesh.padded_triangles)
+            for k, (mesh, edge) in enumerate(zip(self.meshes,
+                                                 self._median_edges))])
+
+    def plan_device(self, states, z_obs, dt) -> "SensorPlan":
+        """The part of :meth:`plan` before its host read: the candidate
+        pass, the compaction bookkeeping, the slack of every triangle and
+        the model parameters, all on the device (``dt`` a number or a 0-d
+        tensor). It reads nothing back, so a CUDA graph can hold it; the
+        plan's ``level`` is None until :meth:`choose_level`."""
         cand = self.candidates(states)
         # dt in float32 frame units, as the reference's traced dt
         dtf = as_dt(dt, self.device) * float(np.float32(self.frame_rate))
-        slack = self.bary_slack
-        if slack is None:
-            slack = slack_mod.auto_bary_slack(
-                slack_mod.cloud_depth(states[..., 2]), 1.0 / self._fx,
-                self._min_median_edge, self.bary_slack_px)
-        params_vec = make_params_vec(self.bp, self.op, dtf, slack)
+        params_vec = make_params_vec(self.bp, self.op, dtf)
         book = self.selection(cand) if self.caps(z_obs.shape[0]) else None
-        return SensorPlan(cand, params_vec, dtf, None, book)
+        return SensorPlan(cand, params_vec, self.triangle_slack(states), dtf,
+                          None, book)
 
     def choose_level(self, plan: "SensorPlan") -> "SensorPlan":
         """The ladder's level for ``plan``: the tightest whose caps hold
@@ -590,6 +639,7 @@ class FusedSensor:
         P = states.shape[0]
         p_pad, n_pad = self._pads(P)
         cand, params_vec, dtf = plan.cand, plan.params_vec, plan.dtf
+        tri_slack = plan.tri_slack
         N = z_obs.shape[0]
         rays = self.camera.rays
         lazy = isinstance(occ, (tuple, list))
@@ -599,30 +649,32 @@ class FusedSensor:
                 "p_occluded_occluded >= p_occluded_visible")
         q, age = self._unpack_occ(occ)
 
-        def whole_map(gt, cand_use):
+        def whole_map(gt, cand_use, slack_use):
             # the kernel on every pixel: it ages the rows itself
             ll, q_post = fused_loglik_packed(
                 gt, q, z_obs, cand_use, rays, params_vec, P, nb=self.nb,
-                ages=None if age is None else age[:N])
+                ages=None if age is None else age[:N], tri_slack=slack_use)
             if not commit:
                 return ll, occ
             return ll, (q_post, torch.zeros_like(age)) if lazy else q_post
 
         caps = self.caps(N)
         if plan.level == len(caps):
-            return whole_map(self.pack_full(states, p_pad), cand)
+            return whole_map(self.pack_full(states, p_pad), cand, tri_slack)
         book = plan.book
         pcap, tcap = caps[plan.level]
         sel, uniq = self.level_indices(book, pcap, tcap, N)
         if tcap is not None:
             gt = self.pack_selected(states, p_pad, uniq)
+            slack_use = tri_slack[uniq]
             inv = torch.clamp(book["cp"].to(torch.int64) - 1, 0, tcap - 1)
             cand_use = inv[cand]
         else:
             gt = self.pack_full(states, p_pad)
+            slack_use = tri_slack
             cand_use = cand
         if pcap is None:
-            return whole_map(gt, cand_use)
+            return whole_map(gt, cand_use, slack_use)
 
         # off-silhouette loglik of the unselected pixels (the kernel's
         # background branch), plus the reference's pixel-padding constant
@@ -644,7 +696,8 @@ class FusedSensor:
         occ_sel = kernels.gather_pixel_rows(q, sel32)
         ll, occ_post = fused_loglik_packed(
             gt, occ_sel, z_obs[sel], cand_use[sel], rays[sel], params_vec,
-            P, nb=self.nb, ages=None if age is None else age[sel])
+            P, nb=self.nb, ages=None if age is None else age[sel],
+            tri_slack=slack_use)
         if not commit:
             return ll + scalar, occ
         if not lazy:
@@ -671,12 +724,15 @@ class FusedSensor:
 
 class SensorPlan(NamedTuple):
     """One call's decisions (:meth:`FusedSensor.plan`): the candidate ids
-    (N, K), the kernel's parameters (16,), dt in frame units (a 0-d
-    float32 tensor), the ladder level (``len(caps)``: the full level;
-    None before :meth:`FusedSensor.choose_level`) and the compaction
-    bookkeeping (:meth:`FusedSensor.selection`; None without a ladder)."""
+    (N, K), the kernel's parameters (16,), the slack of every union
+    triangle (Tu,) (:meth:`FusedSensor.triangle_slack`), dt in frame
+    units (a 0-d float32 tensor), the ladder level (``len(caps)``: the
+    full level; None before :meth:`FusedSensor.choose_level`) and the
+    compaction bookkeeping (:meth:`FusedSensor.selection`; None without a
+    ladder)."""
     cand: torch.Tensor
     params_vec: torch.Tensor
+    tri_slack: torch.Tensor
     dtf: torch.Tensor
     level: Optional[int]
     book: Optional[dict]

@@ -1,6 +1,8 @@
 """Wrappers of the port's CUDA kernels, each beside its plain PyTorch version.
 
-Four kernels carry the tracker's main path (sources in csrc/):
+Four kernels carry the tracker's main path (sources in csrc/), and a
+fifth, ``age_pixel_rows`` (pixel_rows.cu, the port's own), the
+distributed exchanges (``EXCHANGE_WRAPPERS``):
 
 =====================  ===================  =================================
 wrapper                CUDA source          replaces (Pallas, TPU)
@@ -12,6 +14,9 @@ wrapper                CUDA source          replaces (Pallas, TPU)
 ``gather_pixel_rows``  pixel_rows.cu        ``gather_pixel_rows`` (:584)
 ``scatter_pixel_rows`` pixel_rows.cu        ``scatter_pixel_rows`` (:508)
 ``lineage_gather``     lineage_gather.cu    ``lineage_gather_pallas`` (:430)
+``age_pixel_rows``     pixel_rows.cu        none: the closed form of
+                                            ``occlusion_as_pn`` (:1052,
+                                            array code) over the map
 =====================  ===================  =================================
 
 Scratch and outputs are allocated here with ``torch.empty``, never in a
@@ -77,7 +82,7 @@ def _raise_on(err: int, what: str):
 # Fused candidate raycast + beam likelihood + occlusion posterior
 # ---------------------------------------------------------------------------
 
-def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params):
+def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params, tri_slack):
     """Plain PyTorch version of the fused kernel (same op order).
 
     Args:
@@ -86,13 +91,15 @@ def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params):
       occ: (n, p_pad) occlusion map rows of the n pixels (bf16 or f32).
       z: (n,) f32 observed depth, NaN = invalid; cand: (n, K) triangle ids
         into ``slabs``; rays: (n, 3) f32; ages: (n,) f32 staleness of
-        each occ row in frame units; params: (16,) f32 (make_params_vec).
+        each occ row in frame units; params: (16,) f32 (make_params_vec;
+        entry 15 is not read); tri_slack: (T,) f32 barycentric slack of
+        each triangle's inside-test.
     Returns (loglik (p_pad,) f32 = Σ_j log p(z_j), occ_out (n, p_pad) in
     occ's dtype).
     """
     (msig, sfac, wt, minz, maxz, lam, p_inv_occ, p_inv_vis, p_inv_bg,
      occ_pi, _gdt, inv_range, occ_lg, occ_dtf, occ_sgn,
-     slack) = params.unbind()
+     _slack) = params.unbind()
     dx, dy, dz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]   # (n, 1)
     zc = z[:, None]
     z_real = zc == zc
@@ -102,6 +109,7 @@ def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params):
     t = None
     for k in range(cand.shape[1]):
         s = slabs[cand[:, k].long()]                         # (n, 10, p_pad)
+        slack = tri_slack[cand[:, k].long()][:, None]        # (n, 1)
         u = s[:, 0] * dx + s[:, 1] * dy + s[:, 2] * dz
         v = s[:, 3] * dx + s[:, 4] * dy + s[:, 5] * dz
         det = s[:, 6] * dx + s[:, 7] * dy + s[:, 8] * dz
@@ -150,7 +158,7 @@ def fused_loglik_plain(slabs, occ, z, cand, rays, ages, params):
     return torch.log(p_z).sum(dim=0), post.to(occ.dtype)
 
 
-def fused_loglik(slabs, occ, z, cand, rays, ages, params):
+def fused_loglik(slabs, occ, z, cand, rays, ages, params, tri_slack):
     """Fused raycast + likelihood + occlusion posterior (see
     :func:`fused_loglik_plain` for the arguments and results).
 
@@ -164,7 +172,8 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
     version's single sum over pixels.
     """
     if not occ.is_cuda:
-        return fused_loglik_plain(slabs, occ, z, cand, rays, ages, params)
+        return fused_loglik_plain(slabs, occ, z, cand, rays, ages, params,
+                                  tri_slack)
     dev = occ.device
     f32 = (torch.float32,)
     _check("occ", occ, (torch.bfloat16, torch.float32), 2, dev)
@@ -174,6 +183,7 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
     _check("rays", rays, f32, 2, dev)
     _check("ages", ages, f32, 1, dev)
     _check("params", params, f32, 1, dev)
+    _check("tri_slack", tri_slack, f32, 1, dev)
     n, p_pad = occ.shape
     K = cand.shape[1]
     if slabs.shape[1:] != (10, p_pad):
@@ -181,11 +191,12 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
                          f"{tuple(slabs.shape)}")
     if (z.shape != (n,) or cand.shape[0] != n or K < 1
             or rays.shape != (n, 3) or ages.shape != (n,)
-            or params.shape != (16,)):
+            or params.shape != (16,) or tri_slack.shape != slabs.shape[:1]):
         raise ValueError(
             f"shape mismatch: occ {tuple(occ.shape)}, z {tuple(z.shape)}, "
             f"cand {tuple(cand.shape)}, rays {tuple(rays.shape)}, ages "
-            f"{tuple(ages.shape)}, params {tuple(params.shape)}")
+            f"{tuple(ages.shape)}, params {tuple(params.shape)}, tri_slack "
+            f"{tuple(tri_slack.shape)} for {slabs.shape[0]} slabs")
     loglik = torch.empty((p_pad,), dtype=torch.float32, device=dev)
     occ_out = torch.empty_like(occ)
     if n == 0:
@@ -200,8 +211,9 @@ def fused_loglik(slabs, occ, z, cand, rays, ages, params):
              else lib.dbot_fused_loglik_f32)
     err = entry(slabs.data_ptr(), occ.data_ptr(), z.data_ptr(),
                 cand.data_ptr(), rays.data_ptr(), ages.data_ptr(),
-                params.data_ptr(), occ_out.data_ptr(), partial.data_ptr(),
-                loglik.data_ptr(), n, K, p_pad, n_groups, _stream(occ))
+                params.data_ptr(), tri_slack.data_ptr(), occ_out.data_ptr(),
+                partial.data_ptr(), loglik.data_ptr(), n, K, p_pad, n_groups,
+                _stream(occ))
     fused_loglik.launches += 1
     _raise_on(err, "fused_loglik launch")
     return loglik, occ_out
@@ -361,6 +373,55 @@ scatter_pixel_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Row aging of the lazy occlusion map (the distributed exchanges)
+# ---------------------------------------------------------------------------
+
+def age_pixel_rows_plain(q, geff, pi):
+    """The lazy map's closed form with one factor a row: ``out[n, c] =
+    clamp(q[n, c] if geff[n] == 1 else pi + geff[n]·(q[n, c] − pi), 0, 1)``
+    in float32, in ``q``'s dtype (plain PyTorch version; ``occlusion_as_pn``
+    applies it in float32)."""
+    qf = q.to(torch.float32)
+    g = geff[:, None]
+    q_now = pi + g * (qf - pi)
+    return torch.clamp(torch.where(g == 1.0, qf, q_now), 0.0,
+                       1.0).to(q.dtype)
+
+
+def age_pixel_rows(q, geff, pi):
+    """:func:`age_pixel_rows_plain` in one pass over the map, out of
+    place: ``q`` is ``(n_rows, p)`` bfloat16 or float32, contiguous, rows
+    16-byte multiples; ``geff`` ``(n_rows,)`` and ``pi`` (0-d) float32 on
+    its device. The result is a new map, equal to the plain version's bit
+    for bit (the kernel rounds op by op in the same order)."""
+    if not q.is_cuda:
+        return age_pixel_rows_plain(q, geff, pi)
+    _check("q", q, (torch.bfloat16, torch.float32), 2, q.device)
+    _check("geff", geff, (torch.float32,), 1, q.device)
+    _check("pi", pi, (torch.float32,), 0, q.device)
+    n_rows, p = q.shape
+    if geff.shape[0] != n_rows:
+        raise ValueError(f"geff must be ({n_rows},), got "
+                         f"{tuple(geff.shape)}")
+    row_bytes = p * q.element_size()
+    if row_bytes % 16 or q.data_ptr() % 16:
+        raise ValueError(f"rows of q must be 16-byte multiples and aligned "
+                         f"(rows of {row_bytes} B)")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    err = _lib().dbot_age_pixel_rows(
+        q.data_ptr(), geff.data_ptr(), pi.data_ptr(), out.data_ptr(),
+        n_rows, row_bytes, int(q.dtype == torch.bfloat16), _stream(q))
+    age_pixel_rows.launches += 1
+    _raise_on(err, "age_pixel_rows launch")
+    return out
+
+
+age_pixel_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Particle-lineage gather along the particle axis of the occlusion map
 # ---------------------------------------------------------------------------
 
@@ -417,9 +478,11 @@ lineage_gather.launches = 0
 # distributed exchanges), counted again here
 lineage_gather.two_width_launches = 0
 
-# the four kernels' wrappers by name; each counts its launches in
-# ``launches``
+# the wrappers by name, each counting its launches in ``launches``: the
+# four of every tracker step, and the one that only the distributed
+# exchanges launch
 WRAPPERS = {"fused_loglik": fused_loglik,
             "gather_pixel_rows": gather_pixel_rows,
             "scatter_pixel_rows": scatter_pixel_rows,
             "lineage_gather": lineage_gather}
+EXCHANGE_WRAPPERS = {"age_pixel_rows": age_pixel_rows}

@@ -56,10 +56,28 @@ verified yet (NCCL refuses two ranks on one card).
 
 **Occlusion leaf.** The sensor's hooks (``gather_occlusion`` with
 ``num_in``, ``where_occlusion``, ``concat_occlusion``,
-``particle_stride``: the fused sensor's ``(n_pad, p_pad)`` map and lazy
-ages) or the ``(P, N)`` defaults. The fused sensor's map is updated in
-place by its compaction scatter: a caller that steps one belief through
-two step functions clones it first.
+``particle_stride``, ``materialize_occlusion``: the fused sensor's
+``(n_pad, p_pad)`` map and lazy ages) or the ``(P, N)`` defaults. The
+fused sensor's map is updated in place by its compaction scatter: a
+caller that steps one belief through two step functions clones it first.
+
+**Lazy ages.** The fused sensor's map is lazy: one age per pixel and
+rank, and the ranks' ages differ (each ladder selects its own pixels).
+A column that crosses ranks must not meet the receiver's ages. So on a
+frame where any offspring of any rank descends from another rank's
+particle (``ex["cross"]``: the same on every rank, from the gathered
+weights and the shared ``u``), every rank first materializes its map to
+age 0 (``materialize_occlusion``), and all ages are zero; on other
+frames each rank keeps its map and its own ages bit for bit, as one
+rank would. After every exchange a rank's ages are its own (so
+materialized), whichever block the hooks took them from. Each offspring's
+materialized column is then its parent's on the parent's home rank,
+rounded once to the map's dtype. This departs from the reference, which
+keeps one shard's ages for the whole map. ``ex["cross"]`` is a device
+flag, so the materialization (one pass over the map, the row-aging
+kernel) runs on every exchange that moves columns, crossing or not: the
+counts exchange on every frame, the others on resample frames; where
+nothing crosses it rewrites the map unchanged.
 """
 
 from __future__ import annotations
@@ -136,8 +154,9 @@ def _tree_map(fn, occ):
 
 
 def _occ_hooks(loglik_fn):
-    """(gather, where, concat, stride): the sensor's occlusion hooks, or
-    the (P, N) defaults (dist_filter.py:86-118 of the reference)."""
+    """(gather, where, concat, stride, materialize): the sensor's
+    occlusion hooks, or the (P, N) defaults (dist_filter.py:86-118 of
+    the reference; a map without ages has nothing to materialize)."""
     sensor_gather = getattr(loglik_fn, "gather_occlusion", None)
     if sensor_gather is None:
         def gather(occ, idx, num_in=None):
@@ -158,7 +177,9 @@ def _occ_hooks(loglik_fn):
             return torch.cat(blocks, dim=0)
     else:
         stride = getattr(loglik_fn, "particle_stride", _round_up128)
-    return gather, where, concat, stride
+    materialize = getattr(loglik_fn, "materialize_occlusion", None) or (
+        lambda occ, now: occ)
+    return gather, where, concat, stride, materialize
 
 
 def init_distributed_belief(comm, initial_poses, num_particles: int,
@@ -296,7 +317,9 @@ def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
     ``do`` where-selects between the systematic parents and the identity;
     the counts exchange runs its collectives every frame, the others only
     on resample frames (the neighbour exchange's hop span is reduced on
-    every frame, so that one read picks its path)."""
+    every frame, so that one read picks its path). ``ex["cross"]`` says
+    whether any offspring of any rank has its parent on another rank
+    (see the module docstring on lazy ages)."""
     occ_gather = hooks[0]
     idx, S = comm.rank, comm.size
     p_local, K = states.shape[:2]
@@ -319,19 +342,22 @@ def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
                            0, total - 1)
         return torch.where(do, p_rs, shard * p_local + ar_i)
 
-    parents = shard_parents(idx)
+    all_parents = torch.stack([shard_parents(s) for s in range(S)])
+    parents = all_parents[idx]
     picked = packed_all.index_select(0, parents)
     ex = {"states": picked[:, 2:].reshape(p_local, K, 13),
           "log_w": torch.where(do, torch.zeros_like(log_w), log_w),
           "old_loglik": picked[:, 1].contiguous(), "parents": parents}
     owner = torch.div(parents, p_local, rounding_mode="floor")
-    local_idx = torch.clamp(parents - idx * p_local, 0, p_local - 1)
+    ex["local_idx"] = torch.clamp(parents - idx * p_local, 0, p_local - 1)
     if S == 1:
         # one rank: every parent is local, the exchange is the lineage
         # gather (no collective, no host read)
-        ex["local_idx"] = local_idx
         return ex, None
     ex["owner"] = owner
+    home = torch.arange(S, device=dev)[:, None]
+    ex["cross"] = torch.any(torch.div(all_parents, p_local,
+                                      rounding_mode="floor") != home)
     if exchange != "counts":
         read = [do.to(torch.int64)]
         if exchange == "neighbor" and S > 2 * max_hops + 1:
@@ -355,7 +381,7 @@ def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
     one = torch.ones((1,), dtype=torch.bool, device=dev)
     for s in hops:
         dest = (idx + s) % S
-        p_d = shard_parents(dest)
+        p_d = all_parents[dest]
         mine = torch.div(p_d, p_local, rounding_mode="floor") == idx
         chg = torch.cat([one, p_d[1:] != p_d[:-1]])
         first = mine & chg
@@ -381,7 +407,7 @@ def _resample_prepare(states, log_w, occ, old_loglik, *, do, ln, u, comm,
         mask = owner == src
         slotm = torch.cumsum((mask & chg_mine).to(torch.int64), 0) - 1
         cidx = torch.where(mask, h * Cs + slotm, cidx)
-    ex.update(plans=plans, cidx=cidx, loc=occ_gather(occ, local_idx))
+    ex.update(plans=plans, cidx=cidx)
     static = _static_path(exchange, S, max_hops, capacity, p_local)
     return ex, None if static is not None else span_m
 
@@ -390,11 +416,25 @@ def _exchange(path, occ, ex, *, comm, max_hops, capacity, hooks):
     """The occlusion leaf after a block's resampling by exchange ``path``
     (:func:`_choose_path`) from what :func:`_resample_prepare` left in
     ``ex``; ``occ`` is the block's (committed) leaf."""
-    occ_gather, occ_where, occ_concat, occ_stride = hooks
+    occ_gather, _, _, _, occ_materialize = hooks
     if path == "local":
         return occ_gather(occ, ex["local_idx"])
     if path == "none":
         return occ
+    # columns may cross ranks: materialize where they do (module
+    # docstring, lazy ages)
+    occ = occ_materialize(occ, ex["cross"])
+    out = _move_columns(path, occ, ex, comm=comm, max_hops=max_hops,
+                        capacity=capacity, hooks=hooks)
+    # the rank's own ages, whichever block the hooks kept them from
+    return (out[0], occ[1]) if isinstance(occ, (tuple, list)) else out
+
+
+def _move_columns(path, occ, ex, *, comm, max_hops, capacity, hooks):
+    """The parent columns of this rank's offspring by ``path`` (not
+    ``"local"`` or ``"none"``) from the blocks' leaves; the ages of the
+    result are whichever the hooks kept."""
+    occ_gather, occ_where, occ_concat, occ_stride, _ = hooks
     idx, S = comm.rank, comm.size
     parents, owner = ex["parents"], ex["owner"]
     p_local = parents.shape[0]
@@ -445,7 +485,7 @@ def _exchange(path, occ, ex, *, comm, max_hops, capacity, hooks):
     combined = occ_concat(bufs, C)
     remote = occ_gather(combined, ex["cidx"],
                         num_in=occ_stride(C) * len(hops))
-    return occ_where(owner != idx, remote, ex["loc"])
+    return occ_where(owner != idx, remote, occ_gather(occ, ex["local_idx"]))
 
 
 def _fill_noise(noise, e_gen, u_gen):

@@ -82,8 +82,11 @@ def test_fused_loglik_matches_plain(cuda, dtype):
     ages = torch.randint(0, 5, (n_px,), generator=g, device=cuda).float()
     pv = fs.make_params_vec(beam.make_beam_params(device=cuda),
                             occlusion.make_occlusion_params(device=cuda),
-                            1.0, 0.25)
-    args = (gt, occ, z, cand, cam.rays, ages, pv)
+                            1.0)
+    # two slacks: the even triangles widened by 0.5, the odd ones exact
+    T = m.padded_triangles
+    tri_slack = torch.where(torch.arange(T, device=cuda) % 2 == 0, 0.5, 0.0)
+    args = (gt, occ, z, cand, cam.rays, ages, pv, tri_slack)
     before = kernels.fused_loglik.launches
     ll_k, occ_k = kernels.fused_loglik(*args)
     assert kernels.fused_loglik.launches == before + 1
@@ -94,10 +97,18 @@ def test_fused_loglik_matches_plain(cuda, dtype):
         atol=1e-6 if dtype == torch.float32 else 4e-3)
     assert torch.equal(occ, args[1])               # input map untouched
     with pytest.raises(TypeError):
-        kernels.fused_loglik(gt, occ, z, cand.long(), cam.rays, ages, pv)
+        kernels.fused_loglik(gt, occ, z, cand.long(), cam.rays, ages, pv,
+                             tri_slack)
     with pytest.raises(ValueError):
         kernels.fused_loglik(gt[:, :, :128], occ, z, cand, cam.rays, ages,
-                             pv)
+                             pv, tri_slack)
+    with pytest.raises(ValueError):
+        kernels.fused_loglik(gt, occ, z, cand, cam.rays, ages, pv,
+                             tri_slack[:-1])
+    # the two slacks decide pixels: one slack for all moves the result
+    ll_one, _ = kernels.fused_loglik(*args[:7], torch.full_like(tri_slack,
+                                                                0.5))
+    assert not torch.equal(ll_one, ll_k)
 
 
 FUSED_CASES = ["one_slab", "distinct_slabs", "degenerate_only",
@@ -152,9 +163,10 @@ def test_fused_loglik_hard_candidates(cuda, dtype, case):
     ages = torch.randint(0, 5, (n_px,), generator=g, device=cuda).float()
     pv = fs.make_params_vec(beam.make_beam_params(device=cuda),
                             occlusion.make_occlusion_params(device=cuda),
-                            1.0, 0.25)
+                            1.0)
+    tri_slack = torch.full((gt.shape[0],), 0.25, device=cuda)
     args = (gt, occ, z[:n_px].contiguous(), cand,
-            cam.rays[:n_px].contiguous(), ages, pv)
+            cam.rays[:n_px].contiguous(), ages, pv, tri_slack)
     ll_k, occ_k = kernels.fused_loglik(*args)
     ll_p, occ_p = kernels.fused_loglik_plain(*args)
     torch.testing.assert_close(ll_k, ll_p, rtol=1e-5, atol=1e-4 * n_px)
@@ -182,9 +194,10 @@ def test_fused_loglik_ragged_particle_axis(cuda):
     ages = torch.randint(0, 5, (n_px,), generator=g, device=cuda).float()
     pv = fs.make_params_vec(beam.make_beam_params(device=cuda),
                             occlusion.make_occlusion_params(device=cuda),
-                            1.0, 0.25)
+                            1.0)
+    tri_slack = torch.full((gt.shape[0],), 0.25, device=cuda)
     args = (gt, occ, z[:n_px].contiguous(), cand,
-            cam.rays[:n_px].contiguous(), ages, pv)
+            cam.rays[:n_px].contiguous(), ages, pv, tri_slack)
     ll_k, occ_k = kernels.fused_loglik(*args)
     ll_p, occ_p = kernels.fused_loglik_plain(*args)
     torch.testing.assert_close(ll_k, ll_p, rtol=1e-5, atol=1e-4 * n_px)
@@ -350,6 +363,31 @@ def test_eager_branch_matches_full_level_and_cpu(cuda, dtype):
     torch.testing.assert_close(eager[1], full[1], rtol=0,
                                atol=1e-5 if dtype == torch.float32 else 4e-3)
     assert_card_like_cpu(eager, sensor_frames(torch.device("cpu"), **opts))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_age_pixel_rows_matches_plain(cuda, dtype):
+    """The row aging against its plain version bit for bit (NaN where
+    NaN), with rows of age 0 and the values 0, 1 and NaN; one launch a
+    call; a factor vector of the wrong length and rows that are not
+    16-byte multiples raise."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n_rows, p = 300, 1152
+    q = torch.rand((n_rows, p), generator=g, device=cuda).to(dtype)
+    q[0, :8], q[1, :8], q[2, :8] = float("nan"), 0.0, 1.0
+    age = torch.randint(0, 7, (n_rows,), generator=g, device=cuda).float()
+    age[::3] = 0.0
+    geff = torch.exp(torch.log(torch.tensor(0.6, device=cuda)) * age)
+    pi = torch.tensor(0.25, device=cuda)
+    before = kernels.age_pixel_rows.launches
+    got = kernels.age_pixel_rows(q, geff, pi)
+    assert kernels.age_pixel_rows.launches == before + 1
+    torch.testing.assert_close(got, kernels.age_pixel_rows_plain(q, geff, pi),
+                               rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        kernels.age_pixel_rows(q, geff[:-1].contiguous(), pi)
+    with pytest.raises(ValueError):
+        kernels.age_pixel_rows(q[:, :p - 2].contiguous(), geff, pi)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

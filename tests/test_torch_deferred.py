@@ -169,28 +169,43 @@ def test_deferred_depths_match_jax_and_each_other(slack):
     assert float(m.g_det[-1].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("case", ["single", "scene", "subset"])
+@pytest.mark.parametrize("case", ["single", "scene", "subset",
+                                  "scene_fixed_slack"])
 def test_sigma_renderer_matches_jax(case):
+    """The port's sigma renderer against JAX's. On the two-mesh scene
+    with the automatic slack the port takes each object's slack in its
+    own mesh's units, which is JAX's rule for a mesh alone: JAX's side
+    is the elementwise minimum of its renderer run on each mesh alone.
+    With a fixed slack both take one number for every mesh."""
     jc, pc = cams()
     jms, pms = meshes()
     g = np.random.default_rng(1)
     pixel_idx = np.arange(0, H * W, 3) if case == "subset" else None
-    if case == "scene":
+    slack = 0.1 if case == "scene_fixed_slack" else None
+    if case.startswith("scene"):
         ref2 = np.array([0.06, 0.02, 0.55, 1, 0, 0, 0], np.float32)
         poses = np.stack([sigma_like_poses(g, REF, 49),
                           sigma_like_poses(g, ref2, 49)], axis=1)
     else:
         jms, pms = jms[:1], pms[:1]
         poses = sigma_like_poses(g, REF, 25)
-    jr = jdeferred.make_sigma_renderer(
-        jms, jc.rays, H, W,
-        pixel_idx=None if pixel_idx is None else jnp.asarray(pixel_idx),
-        tri_chunk=64)
-    want = jr(jnp.asarray(poses))
+
+    def jax_render(ms, p):
+        return jdeferred.make_sigma_renderer(
+            ms, jc.rays, H, W,
+            pixel_idx=None if pixel_idx is None else jnp.asarray(pixel_idx),
+            tri_chunk=64, bary_slack=slack)(jnp.asarray(p))
+
+    if case == "scene":
+        want = np.minimum(*(np.asarray(jax_render([m], poses[:, k]))
+                            for k, m in enumerate(jms)))
+    else:
+        want = jax_render(jms, poses)
     got = deferred.make_sigma_renderer(
         pms, pc.rays, H, W,
         pixel_idx=None if pixel_idx is None
-        else torch.as_tensor(pixel_idx), tri_chunk=64)(t(poses))
+        else torch.as_tensor(pixel_idx), tri_chunk=64,
+        bary_slack=slack)(t(poses))
     assert_depths_close(got, want)
     n_sub = H * W if pixel_idx is None else len(pixel_idx)
     assert got.shape == (poses.shape[0], n_sub)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from dbot_ros_tpu_torch import interop
+from dbot_ros_tpu_torch.filters import rbcpf
 from dbot_ros_tpu_torch.filters.rbcpf import BlockNoise, ParticleBelief
 from dbot_ros_tpu_torch.models.sensor import make_rb_sensor
 from dbot_ros_tpu_torch.ops import fused_sensor as fs
@@ -79,16 +80,16 @@ def block(comm, x):
     return x[comm.rank * L:(comm.rank + 1) * L]
 
 
-def belief_of(comm, sensor, cam, states, lw, occ_pn):
+def belief_of(comm, sensor, cam, states, lw, occ_pn, age=None):
     """This rank's rows of a global belief, its occlusion as the sensor
-    keeps it (the fused sensor's map with zero ages)."""
+    keeps it (the fused sensor's map with ``age``, zero by default)."""
     occ = block(comm, occ_pn)
     L = occ.shape[0]
     if hasattr(sensor, "init_occlusion"):
         leaf = interop.occlusion_from_jax(
             occ, L, cam.num_pixels, sensor.nb,
-            age=np.zeros(fs._round_up(cam.num_pixels, sensor.nb)),
-            occ_dtype=sensor.occ_dtype)
+            age=(np.zeros(fs._round_up(cam.num_pixels, sensor.nb))
+                 if age is None else age), occ_dtype=sensor.occ_dtype)
     else:
         leaf = t(occ).float()
     return ParticleBelief(states=t(block(comm, states)).float(),
@@ -150,6 +151,17 @@ def occ_record(sensor, occ, L):
                 if q.dtype == torch.bfloat16 else n(q)), n(age), \
             n(sensor.occlusion_as_pn(occ, L))
     return n(occ), np.zeros(0, np.float32), n(occ)
+
+
+def pre_exchange(sensor, tp, belief, z, noise):
+    """What a one-object step's exchange starts from on this rank: the
+    proposal's states and the sensor's committed leaf (map bits, ages and
+    its (L, N) materialized view), from a copy of ``belief``."""
+    states = rbcpf.propose_block(belief.states, 0, 1 / 30, tp, noise[0])
+    _, leaf = sensor(states, clone(belief).occlusion, t(z), 1 / 30)
+    q, age, pn = occ_record(sensor, leaf, belief.num_particles)
+    return {"pre.states": n(states), "pre.q": q, "pre.age": age,
+            "pre.occ": pn}
 
 
 def run_modes(comm, sensor, tp, belief, frames, noises, max_kl, modes=MODES,
@@ -322,9 +334,9 @@ def case_scenes(comm, inp, name):
 
 def case_ages(comm, inp, name):
     """World size 2 (ranks 0 and 1), fused sensor, the two ranks' clouds
-    1.5 cm apart, one frame without a resample: the lazy ages after
-    all_gather (the sensor's own) and after counts (taken from the
-    neighbour's buffer)."""
+    1.5 cm apart, one frame without a resample: the leaf before the
+    exchange (the sensor's own, whose ages differ between the ranks) and
+    after each exchange."""
     d = inp.group(name)
     pair = comm_mod.new_group([0, 1], GROUP_TIMEOUT_S)
     if pair is None:
@@ -332,8 +344,78 @@ def case_ages(comm, inp, name):
     sensor, tp, cam = inp.sensor("fused")
     belief = belief_of(pair, sensor, cam, d["states"], d["lw"], d["occ"])
     noise = local_noise(pair, 1, belief.num_particles, 3)
-    return run_modes(pair, sensor, tp, belief, d["z"][None], [noise],
-                     1e6, ("all_gather", "counts"))
+    out = pre_exchange(sensor, tp, belief, d["z"], noise)
+    out.update(run_modes(pair, sensor, tp, belief, d["z"][None], [noise],
+                         1e6))
+    return out
+
+
+def case_ages_cross(comm, inp, name):
+    """Four ranks, fused sensor, every particle at one pose under a still
+    transition (the weights are the skew given), a map whose columns
+    differ off the silhouette and ages that differ by rank: one frame in
+    every exchange mode, the leaf before the exchange beside it."""
+    d = inp.group(name)
+    sensor, _, cam = inp.sensor("fused")
+    tp = interop.transition_params_from_numpy(inp.group("quiet"))
+    belief = belief_of(comm, sensor, cam, d["states"], d["lw"], d["occ"],
+                       age=d["age"][comm.rank])
+    noise = local_noise(comm, 1, belief.num_particles, 23)
+    out = pre_exchange(sensor, tp, belief, d["z"], noise)
+    out.update(run_modes(comm, sensor, tp, belief, d["z"][None], [noise],
+                         float(d["max_kl"]), max_hops=1))
+    return out
+
+
+def case_ages_island(comm, inp, name):
+    """The island step with the fused sensor and ages that differ by rank:
+    all weight on island 2, so every rank takes island 2's block."""
+    d = inp.group(name)
+    sensor, _, cam = inp.sensor("fused")
+    tp = interop.transition_params_from_numpy(inp.group("quiet"))
+    start = belief_of(comm, sensor, cam, d["states"], d["lw"], d["occ"],
+                      age=d["age"][comm.rank])
+    noise = local_noise(comm, 1, start.num_particles, 29)
+    step, twin = (dist_filter.make_island_step(
+        comm, sensor, tp, 1 / 30, max_kl_divergence=0.5,
+        island_max_kl=0.3) for _ in range(2))
+    kw = dict(noise=noise, island_u=torch.tensor(0.5))
+    got = step(clone(start), t(d["z"]), **kw)
+    want = twin.plain(clone(start), t(d["z"]), **kw)
+    b = got[0]
+    q, age, pn = occ_record(sensor, b.occlusion, b.num_particles)
+    return {"states": n(b.states), "q": q, "age": age, "occ": pn,
+            "paths": np.array(step.paths),
+            "plain_equal": np.array([same(got, want)
+                                     and step.paths == twin.paths])}
+
+
+def case_ages_scenes(comm, inp, name):
+    """Two scenes × two ranks, fused sensor, ages that differ by rank, one
+    resampling frame a scene (the counts exchange within each scene's
+    pair): the leaf before the exchange beside the step's."""
+    d = inp.group(name)
+    sensor, _, cam = inp.sensor("fused")
+    tp = interop.transition_params_from_numpy(inp.group("quiet"))
+    groups = dist_filter.make_scene_groups(2, comm.size // 2,
+                                           GROUP_TIMEOUT_S)
+    pc, s = groups.particles, groups.scene_index
+    belief = belief_of(pc, sensor, cam, d["states"][s], d["lw"][s],
+                       d["occ"][s], age=d["age"][comm.rank])
+    noise = local_noise(pc, 1, belief.num_particles, 31 + s)
+    out = pre_exchange(sensor, tp, belief, d["z"][s], noise)
+    step, twin = (dist_filter.make_multi_scene_step(
+        groups, sensor, tp, 1 / 30, max_kl_divergence=float(d["max_kl"]))
+        for _ in range(2))
+    got = step([clone(belief)], t(d["z"][s:s + 1]), noise=[noise])
+    want = twin.plain([clone(belief)], t(d["z"][s:s + 1]), noise=[noise])
+    b = got[0][0]
+    q, age, pn = occ_record(sensor, b.occlusion, b.num_particles)
+    out.update({"states": n(b.states), "q": q, "age": age, "occ": pn,
+                "scene": np.array(s), "paths": np.array(step.paths),
+                "plain_equal": np.array([same(got, want)
+                                         and step.paths == twin.paths])})
+    return out
 
 
 def case_scaling(comm, inp, name):
@@ -381,6 +463,11 @@ CASES = [
     ("island", case_island),
     ("scenes", case_scenes),
     ("ages", case_ages),
+    ("ages_still", case_ages_cross),
+    ("ages_fits", case_ages_cross),
+    ("ages_overflow", case_ages_cross),
+    ("ages_island", case_ages_island),
+    ("ages_scenes", case_ages_scenes),
     ("scaling", case_scaling),
     ("dryrun", case_dryrun),
     ("hang", case_hang),           # last: it leaves a group broken

@@ -162,8 +162,9 @@ def test_fused_loglik_plain_matches_pallas(hw, dtype):
     gt = jax_slabs_to_port(jgt, P)
     occ_m = fs.occ_to_map(t(occ0)).to(tdt)
     args = (t(z), torch.tensor(cand), s.pcam.rays, t(pv))
-    ll_p, occ_p = fs.fused_loglik_packed(gt, occ_m, *args, P,
-                                         ages=t(ages))
+    ll_p, occ_p = fs.fused_loglik_packed(
+        gt, occ_m, *args, P, ages=t(ages),
+        tri_slack=t(pv)[15].expand(gt.shape[0]))
     assert occ_p.dtype == tdt and occ_p.shape == occ_m.shape
     np.testing.assert_allclose(n(ll_p), np.asarray(ll_j), rtol=1e-5,
                                atol=1e-3)
@@ -173,7 +174,8 @@ def test_fused_loglik_plain_matches_pallas(hw, dtype):
                                else 4e-3)
     # the padding constant, explicitly: the same pixels unpadded
     ll_unpadded, _ = kernels.fused_loglik_plain(
-        gt, occ_m[:N], args[0], args[1].int(), args[2], t(ages), args[3])
+        gt, occ_m[:N], args[0], args[1].int(), args[2], t(ages), args[3],
+        args[3][15].expand(gt.shape[0]))
     n_pad = -(-N // 64) * 64
     np.testing.assert_allclose(n(ll_p - ll_unpadded[:P]),
                                (n_pad - N) * LOG_P_INVALID_BG, atol=2e-3)
@@ -241,7 +243,7 @@ def test_fused_loglik_plain_matches_pallas_on_hard_candidates(case):
     occ_m = fs.occ_to_map(t(occ0)).to(tdt)
     ll_p, occ_p = fs.fused_loglik_packed(
         gt, occ_m, t(z), torch.tensor(cand), s.pcam.rays[:N], t(pv), P,
-        ages=t(ages))
+        ages=t(ages), tri_slack=t(pv)[15].expand(gt.shape[0]))
     assert occ_p.dtype == tdt and occ_p.shape == (n_pad, fs.particle_pad(P))
     np.testing.assert_allclose(n(ll_p), np.asarray(ll_j), rtol=1e-5,
                                atol=1e-3)
@@ -362,6 +364,35 @@ def test_fused_sensor_eager_chain_matches_jax():
         np.testing.assert_allclose(n(ps.occlusion_as_pn(pocc, P)),
                                    np.asarray(js.occlusion_as_pn(jocc_, P)),
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_materialize_occlusion_is_occlusion_as_pn_rounded_once(dtype):
+    """Where ``now``, ``materialize_occlusion`` gives every value of
+    ``occlusion_as_pn`` (the reference's closed form) rounded once to the
+    map's dtype, and zero ages; where not, the leaf's values and ages bit
+    for bit. On the CPU the row aging is its plain version (no launch)."""
+    _, tdt = DTYPES[dtype]
+    s = scene((30, 40))
+    P = 96
+    ps = fs.make_fused_sensor(s.pm, s.pcam, s.bp, s.op, occ_dtype=tdt)
+    q0, age0 = ps.init_occlusion(P, 0.1)
+    g = np.random.default_rng(9)
+    q = t(g.uniform(size=tuple(q0.shape))).to(tdt)
+    q[0], q[1] = 0.0, 1.0
+    age = t(g.integers(0, 7, tuple(age0.shape)))
+    age[::3] = 0.0
+    leaf = (q, age)
+    launches = kernels.age_pixel_rows.launches
+    q_now, age_now = ps.materialize_occlusion(leaf, torch.tensor(True))
+    assert q_now.dtype == tdt and not torch.equal(q_now, q)
+    assert torch.equal(age_now, torch.zeros_like(age))
+    np.testing.assert_array_equal(
+        n(ps.occlusion_as_pn((q_now, age_now), P)),
+        n(ps.occlusion_as_pn(leaf, P).to(tdt)))
+    q_still, age_still = ps.materialize_occlusion(leaf, torch.tensor(False))
+    assert torch.equal(q_still, q) and torch.equal(age_still, age)
+    assert kernels.age_pixel_rows.launches == launches
 
 
 def test_fused_sensor_contract():

@@ -38,9 +38,11 @@ Tolerances, and why:
     tests/test_torch_cli.py (position RMSE 3 cm).
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +57,7 @@ from dbot_ros_tpu.models import beam as jbeam
 from dbot_ros_tpu.models import body_tail as jbody
 from dbot_ros_tpu.models import occlusion as jocc
 from dbot_ros_tpu.models import transition as jtrans
+from dbot_ros_tpu.ops import deferred as jdeferred
 from dbot_ros_tpu.ops import raycast as jraycast
 from dbot_ros_tpu.ops import sigma_points as jsp
 from dbot_ros_tpu.runtime import checkpoint as jcheckpoint
@@ -66,7 +69,7 @@ from dbot_ros_tpu_torch import config as cfg
 from dbot_ros_tpu_torch import interop
 from dbot_ros_tpu_torch.filters import kf, rgf
 from dbot_ros_tpu_torch.models import body_tail, transition
-from dbot_ros_tpu_torch.ops import raycast
+from dbot_ros_tpu_torch.ops import deferred, raycast
 from dbot_ros_tpu_torch.ops import sigma_points as sp
 from dbot_ros_tpu_torch.ops.deferred import make_sigma_renderer
 from dbot_ros_tpu_torch.runtime import checkpoint, cli, node, sources
@@ -469,17 +472,26 @@ def test_batched_step_equals_single_steps():
 # the tracker
 # ---------------------------------------------------------------------------
 
-def tracker_pair(num_objects=1, **overrides):
+def tracker_pair(num_objects=1, bary_slack=None, **overrides):
+    """A JAX and a port tracker of one configuration; ``bary_slack`` (not
+    a tracker option) is handed to both sigma renderers as they are
+    made, in place of the automatic slack."""
     s = scene(num_objects)
     kw = dict(update_iterations=ITER, **overrides)
     tr = dict(linear_acceleration_sigma=0.1, angular_acceleration_sigma=0.5,
               damping=4.0)
-    jt = JaxTracker(jcfg.GaussianTrackerConfig(
-        transition=jcfg.TransitionConfig(**tr), **kw),
-        meshes=s["jms"], camera=s["jc"])
-    pt = GaussianTracker(cfg.GaussianTrackerConfig(
-        transition=cfg.TransitionConfig(**tr), **kw),
-        meshes=s["pms"], camera=s["pc"], device="cpu")
+    with contextlib.ExitStack() as stack:
+        if bary_slack is not None:
+            for module in (jdeferred, deferred):
+                stack.enter_context(mock.patch.object(
+                    module, "make_sigma_renderer", functools.partial(
+                        module.make_sigma_renderer, bary_slack=bary_slack)))
+        jt = JaxTracker(jcfg.GaussianTrackerConfig(
+            transition=jcfg.TransitionConfig(**tr), **kw),
+            meshes=s["jms"], camera=s["jc"])
+        pt = GaussianTracker(cfg.GaussianTrackerConfig(
+            transition=cfg.TransitionConfig(**tr), **kw),
+            meshes=s["pms"], camera=s["pc"], device="cpu")
     return s, jt, pt
 
 
@@ -695,7 +707,11 @@ def test_pixel_stride_matches_jax(stride):
 @pytest.mark.parametrize("num_objects,backend", [(1, "exact"),
                                                  (2, "deferred")])
 def test_sigma_backends_and_scenes_match_jax(num_objects, backend):
-    s, jt, pt = tracker_pair(num_objects, sigma_backend=backend)
+    """The two-object scene takes a fixed slack: the port's automatic
+    slack is per object, JAX's measures both meshes in the finer one's
+    units (test_torch_deferred.py holds each rule to JAX's)."""
+    s, jt, pt = tracker_pair(num_objects, sigma_backend=backend,
+                             bary_slack=None if num_objects == 1 else 0.1)
     g = np.random.default_rng(31)
     start = START[0] if num_objects == 1 else START
     jt.initialize(jnp.asarray(start), first_frame=jnp.asarray(EMPTY))

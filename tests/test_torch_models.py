@@ -123,10 +123,12 @@ def test_params_vec_matches_jax():
     jb, jo = jbeam.make_beam_params(), jocc.make_occlusion_params()
     bp = interop.beam_params_from_numpy(fields(jb))
     op = interop.occlusion_params_from_numpy(fields(jo))
-    for dtf, sl in ((1.0, 0.0), (2.0, 0.25)):
+    # entry 15, the reference's one slack, stays 0 in the port (the
+    # kernel reads a slack per triangle)
+    for dtf in (1.0, 2.0):
         np.testing.assert_allclose(
-            n(fs.make_params_vec(bp, op, dtf, sl)),
-            np.asarray(jrp.make_params_vec(jb, jo, jnp.float32(dtf), sl)),
+            n(fs.make_params_vec(bp, op, dtf)),
+            np.asarray(jrp.make_params_vec(jb, jo, jnp.float32(dtf), 0.0)),
             rtol=1e-6)
 
 
@@ -193,9 +195,15 @@ def test_multinomial_indices_follow_weights():
 
 
 def test_slack_rule_matches_jax():
+    """The automatic slack per object equals JAX's rule run on that
+    object alone: its own mesh's median edge, its own mean depth (the
+    port's rule; JAX's multi-mesh rule takes the finest mesh and the
+    deepest object, ops/slack.py)."""
     jm = [jmesh.icosphere_mesh(0.06, 2), jmesh.l_shape_mesh()]
     pm = [mesh.icosphere_mesh(0.06, 2), mesh.l_shape_mesh()]
     assert slack.median_edge(pm) == jslack.median_edge(jm)
+    for a, b in zip(pm, jm):
+        assert slack.median_edge([a]) == jslack.median_edge([b])
     cam = camera.default_kinect_camera(8)
     jcam = jcamera.default_kinect_camera(8)
     assert slack.ray_pitch(cam.rays, 60, 80) == jslack.ray_pitch(
@@ -203,12 +211,17 @@ def test_slack_rule_matches_jax():
     z = np.random.default_rng(5).uniform(0.5, 1.0, (40, 2)).astype(
         np.float32)
     zbar = slack.cloud_depth(t(z))
-    np.testing.assert_allclose(n(zbar), np.asarray(
-        jslack.cloud_depth(jnp.asarray(z))), rtol=1e-6)
-    np.testing.assert_allclose(
-        n(slack.auto_bary_slack(zbar, 1 / 65.625, 0.01)),
-        np.asarray(jslack.auto_bary_slack(jnp.asarray(n(zbar)), 1 / 65.625,
-                                          0.01)), rtol=1e-6)
+    assert zbar.shape == (2,)
+    for k in range(2):
+        want = jslack.cloud_depth(jnp.asarray(z[:, k]))
+        np.testing.assert_allclose(n(zbar[k]), np.asarray(want), rtol=1e-6)
+        np.testing.assert_allclose(n(slack.cloud_depth(t(z[:, k]))),
+                                   np.asarray(want), rtol=1e-6)
+        np.testing.assert_allclose(
+            n(slack.auto_bary_slack(zbar[k], 1 / 65.625,
+                                    slack.median_edge([pm[k]]))),
+            np.asarray(jslack.auto_bary_slack(
+                want, 1 / 65.625, jslack.median_edge([jm[k]]))), rtol=1e-6)
 
 
 def test_sensor_factory_backends():

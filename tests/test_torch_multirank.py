@@ -16,9 +16,16 @@ inputs, and the ranks replay JAX's draws:
   ``all_gather`` on the same inputs and draws, at mild and degenerate
   skew, with the plain and the fused sensor (its bfloat16 map compared as
   bits), and the counts overflow falling back to the ring;
-* the default generators (``u`` shared, ``e1``/``e2`` per rank), the lazy
-  ages of two ranks (ROADMAP.md §C), ``run_scaling`` at [1, 2], the dry
-  run at world size 4, and a rank that skips a collective;
+* the fused sensor's lazy ages, which differ by rank: a frame without a
+  resample keeps each rank's own in every mode; on a frame that fits
+  the counts buffers and on one that overflows to the ring, in every
+  mode, each offspring's materialized occlusion is its parent's on the
+  parent's home rank (to one bf16 rounding), ages and map bit-equal to
+  all_gather's; the island exchange moves a block's ages with it; the
+  multi-scene step within each scene;
+* the default generators (``u`` shared, ``e1``/``e2`` per rank),
+  ``run_scaling`` at [1, 2], the dry run at world size 4, and a rank
+  that skips a collective;
 * every step through its step program (``capture`` False over gloo)
   bit-equal to its plain body (``plain``) with the same paths: each
   exchange on every case above, the counts overflow, the default
@@ -321,6 +328,35 @@ def build(sc):
                 "ages.occ": np.full((128, sc.N), 0.6, np.float32),
                 "ages.z": sc.frame(POSE0[None] + np.array(
                     [[0.0075, 0, 0, 0, 0, 0, 0]], np.float32), g)})
+    # lazy ages that differ by rank (one age row per rank), every particle
+    # at one pose: no resample, a frame within the counts buffers, one
+    # that overflows them; the island step; two scenes × two ranks
+    n_pad = -(-sc.N // 32) * 32
+    ages = (g.integers(0, 6, (WORLD, n_pad))
+            + np.arange(WORLD)[:, None]).astype(np.float32)
+    mild_o = (0.4 * np.sin(np.arange(Po))).astype(np.float32)
+    for name, lw, max_kl in (("ages_still", mild_o, 1e6),
+                             ("ages_fits", mild_o, 0.01),
+                             ("ages_overflow", inp["overflow.lw"], 1e-4)):
+        inp.update({f"{name}.states": at_pose_o, f"{name}.lw": lw,
+                    f"{name}.occ": inp["overflow.occ"], f"{name}.z": z0,
+                    f"{name}.age": ages,
+                    f"{name}.max_kl": np.array(max_kl)})
+    isl_lw = np.full(P, -400.0, np.float32)
+    isl_lw[2 * L:3 * L] = 0.0
+    inp.update({"ages_island.states": at_pose, "ages_island.lw": isl_lw,
+                "ages_island.occ": lin, "ages_island.z": z0,
+                "ages_island.age": ages})
+    # scene s: rank s of its pair weighs nothing, so columns cross
+    half = np.arange(P) < P // 2
+    inp.update({"ages_scenes.states": np.stack([at_pose] * 2),
+                "ages_scenes.lw": np.stack([np.where(
+                    half == (s == 0), -500.0, 0.01 * np.sin(np.arange(P)))
+                    for s in range(2)]).astype(np.float32),
+                "ages_scenes.occ": np.stack([lin] * 2),
+                "ages_scenes.z": np.stack([z0] * 2),
+                "ages_scenes.age": ages, "ages_scenes.max_kl":
+                np.array(0.01)})
     inp.update({"scaling.pose": POSE0, "scaling.z": z0})
     return inp, jobs
 
@@ -520,26 +556,143 @@ def test_multi_scene_step_matches_jax_scene_by_scene(runs):
         assert_close_to_jax(got, one, 1, ties_per_frame=1)
 
 
-def test_lazy_ages_of_two_ranks_differ_and_counts_swaps_them(runs):
-    """The reference keeps one shard's ages for the whole map
-    (raycast_pallas.py:1038, dist_filter.py:420). Two ranks whose clouds
-    sit 1.5 cm apart select different pixels, so their ages differ after
-    one frame; the counts exchange, on a frame without a resample, gives
-    each rank its neighbour's ages over its own map, and the occlusion
-    that ``occlusion_as_pn`` reads changes against all_gather's (which
-    keeps the rank's own). The map's values stay bit-equal."""
-    q_ag = ranks(runs, "ages", "all_gather.q", [0, 1])
-    q_ct = ranks(runs, "ages", "counts.q", [0, 1])
-    for a, b in zip(q_ag, q_ct):
-        np.testing.assert_array_equal(a, b)
-    own = ranks(runs, "ages", "all_gather.age", [0, 1])
-    got = ranks(runs, "ages", "counts.age", [0, 1])
+def test_lazy_ages_of_two_ranks_differ_and_each_rank_keeps_its_own(runs):
+    """Two ranks whose clouds sit 1.5 cm apart select different pixels,
+    so their ages differ after one frame. On a frame without a resample
+    no column crosses ranks: after every exchange each rank holds the
+    sensor's own map and ages bit for bit, as one rank would (the
+    reference's counts exchange gives each rank its neighbour's ages,
+    raycast_pallas.py:1038, dist_filter.py:420)."""
+    own = ranks(runs, "ages", "pre.age", [0, 1])
     assert not np.array_equal(own[0], own[1]), "ages equal on both ranks"
-    np.testing.assert_array_equal(got[0], own[1])
-    np.testing.assert_array_equal(got[1], own[0])
-    pn_ag = ranks(runs, "ages", "all_gather.occ", [0, 1])
-    pn_ct = ranks(runs, "ages", "counts.occ", [0, 1])
-    assert max(np.abs(a - b).max() for a, b in zip(pn_ag, pn_ct)) > 1e-3
+    for mode in MODES:
+        for r in (0, 1):
+            q_pre = ranks(runs, "ages", "pre.q", [r])[0]
+            got_q = ranks(runs, "ages", f"{mode}.q", [r])[0][0]
+            np.testing.assert_array_equal(
+                ranks(runs, "ages", f"{mode}.age", [r])[0][0], own[r],
+                err_msg=f"{mode} rank {r}")
+            np.testing.assert_array_equal(got_q, q_pre,
+                                          err_msg=f"{mode} rank {r}")
+            np.testing.assert_array_equal(
+                ranks(runs, "ages", f"{mode}.occ", [r])[0][0],
+                ranks(runs, "ages", "pre.occ", [r])[0])
+        paths = [str(p) for p in ranks(runs, "ages", f"{mode}.paths",
+                                       [0])[0]]
+        assert paths == ["counts" if mode == "counts" else "none"], paths
+
+
+MODES = ["all_gather", "ring", "neighbor", "counts"]
+# the path each mode takes on the ages cases' frames (four ranks)
+AGES_PATHS = {
+    "ages_still": {"all_gather": "none", "ring": "none",
+                   "neighbor": "none", "counts": "counts"},
+    "ages_fits": {"all_gather": "all_gather", "ring": "ring",
+                  "neighbor": "neighbor", "counts": "counts"},
+    "ages_overflow": {"all_gather": "all_gather", "ring": "ring",
+                      "neighbor": "neighbor", "counts": "ring"},
+}
+# one rounding of a [0, 1] value to bfloat16: half its 2^-8 step
+BF16_HALF_STEP = 2.0 ** -9
+
+
+def home_parents(pre_states, states):
+    """Each offspring's parent: the row of the gathered proposals
+    (every rank's, in rank order) its state equals bit for bit (the
+    proposal's velocity noise makes each row distinct)."""
+    index = {row.tobytes(): i for i, row in enumerate(
+        pre_states.reshape(pre_states.shape[0], -1))}
+    assert len(index) == pre_states.shape[0], "proposals not distinct"
+    rows = states.reshape(states.shape[0], -1)
+    missing = [j for j, row in enumerate(rows) if row.tobytes() not in index]
+    assert not missing, f"offspring without a parent: {missing[:5]}"
+    return np.array([index[row.tobytes()] for row in rows])
+
+
+def assert_columns_follow_parents(runs, case, key, which, exact):
+    """Each offspring's materialized occlusion (``key``'s ``occ``) against
+    its parent's before the exchange on the parent's home rank, over the
+    ranks ``which`` (one group); returns the share of offspring whose
+    parent lives on another rank."""
+    pre_states = np.concatenate(ranks(runs, case, "pre.states", which))
+    pre_occ = np.concatenate(ranks(runs, case, "pre.occ", which))
+    L = pre_states.shape[0] // len(which)
+    crossed = 0
+    for i, r in enumerate(which):
+        states = ranks(runs, case, f"{key}states", [r])[0]
+        occ = ranks(runs, case, f"{key}occ", [r])[0]
+        if states.ndim == 4:                     # a frame axis
+            states, occ = states[0], occ[0]
+        parents = home_parents(pre_states, states)
+        crossed += int((parents // L != i).sum())
+        want = pre_occ[parents]
+        if exact:
+            np.testing.assert_array_equal(occ, want, err_msg=f"rank {r}")
+        else:
+            np.testing.assert_allclose(occ, want, rtol=0,
+                                       atol=BF16_HALF_STEP,
+                                       err_msg=f"rank {r}")
+    return crossed / pre_states.shape[0]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", list(AGES_PATHS))
+def test_lazy_ages_travel_with_their_particles(runs, case, mode):
+    """Four ranks with different ages: each offspring's materialized
+    occlusion equals its parent's on the parent's home rank (exactly on
+    the frame without a resample, where each rank keeps its own map and
+    ages; to one bfloat16 rounding where columns cross), and the map and
+    ages equal all_gather's bit for bit."""
+    pre_ages = ranks(runs, case, "pre.age")
+    assert len({a.tobytes() for a in pre_ages}) == WORLD
+    paths = [str(p) for p in ranks(runs, case, f"{mode}.paths")[0]]
+    assert paths == [AGES_PATHS[case][mode]], paths
+    still = case == "ages_still"
+    crossed = assert_columns_follow_parents(runs, case, f"{mode}.",
+                                            range(WORLD), exact=still)
+    assert (crossed == 0) if still else (crossed > 0), crossed
+    for r in range(WORLD):
+        for k in ("states", "lw", "q", "age"):
+            a = ranks(runs, case, f"{mode}.{k}", [r])[0]
+            b = ranks(runs, case, f"all_gather.{k}", [r])[0]
+            if k == "q":
+                L = ranks(runs, case, "all_gather.lw", [r])[0].shape[-1]
+                a, b = a[..., :L], b[..., :L]
+            np.testing.assert_array_equal(a, b, err_msg=f"{k} rank {r}")
+        if still:
+            np.testing.assert_array_equal(
+                ranks(runs, case, f"{mode}.age", [r])[0][0], pre_ages[r])
+            np.testing.assert_array_equal(
+                ranks(runs, case, f"{mode}.q", [r])[0][0],
+                ranks(runs, case, "pre.q", [r])[0])
+
+
+def test_island_exchange_moves_the_ages_with_the_block(runs):
+    """All weight on island 2: every rank takes island 2's block, its map
+    and ages included, bit for bit."""
+    assert all([str(p) for p in x] == ["islands"]
+               for x in ranks(runs, "ages_island", "paths"))
+    for k in ("states", "q", "age", "occ"):
+        got = ranks(runs, "ages_island", k)
+        for r in range(WORLD):
+            np.testing.assert_array_equal(got[r], got[2],
+                                          err_msg=f"{k} rank {r}")
+
+
+@pytest.mark.parametrize("scene", [0, 1])
+def test_multi_scene_occlusion_travels_with_its_particles(runs, scene):
+    """Two scenes × two ranks, ages that differ by rank, a resampling
+    frame on which one rank of each pair weighs nothing: within each
+    scene each offspring's materialized occlusion is its parent's on the
+    parent's home rank."""
+    which = [r for r, s in enumerate(ranks(runs, "ages_scenes", "scene"))
+             if int(s) == scene]
+    assert len(which) == 2
+    assert [str(p) for p in ranks(runs, "ages_scenes", "paths",
+                                  which)[0]] == ["counts"]
+    crossed = assert_columns_follow_parents(runs, "ages_scenes", "",
+                                            which, exact=False)
+    assert crossed > 0, crossed
 
 
 def test_run_scaling_mechanics(runs):
@@ -567,11 +720,12 @@ def test_a_rank_that_skips_a_collective_fails_within_the_timeout(runs):
     assert seconds < timeout + 5.0, seconds
 
 
-PLAIN_CASES = ([(c, m) for c in SKEW_CASES
-                for m in ("all_gather", "ring", "neighbor", "counts")]
+PLAIN_CASES = ([(c, m) for c in SKEW_CASES + ["ages"] + list(AGES_PATHS)
+                for m in MODES]
                + [("overflow", "all_gather"), ("overflow", "counts"),
                   ("generators", None), ("island", None),
-                  ("island", "quiet"), ("scenes", None)])
+                  ("island", "quiet"), ("scenes", None),
+                  ("ages_island", None), ("ages_scenes", None)])
 
 
 @pytest.mark.parametrize("case,mode", PLAIN_CASES)
@@ -581,7 +735,8 @@ def test_programmed_step_is_bit_equal_to_the_plain_step(runs, case, mode):
     occlusion leaf, mean and ESS equal bit for bit, the same exchange
     paths (and, without noise, the generators left in the same state)."""
     key = "plain_equal" if mode is None else f"{mode}.plain_equal"
-    for r, ok in enumerate(ranks(runs, case, key)):
+    which = [0, 1] if case == "ages" else range(WORLD)   # a pair group
+    for r, ok in enumerate(ranks(runs, case, key, which)):
         assert np.all(ok), (r, ok)
     if case == "island":
         # JAX's frames exchange whole blocks; the quiet trigger never does

@@ -275,12 +275,18 @@ def assert_matches(pstates, plw, pocc_pn, jstates, jlw, jocc_pn,
     return moved
 
 
+# the two-object parity cases' fixed barycentric slack
+FIXED_SLACK = 0.1
+
+
 @pytest.mark.parametrize("num_objects", [1, 2])
 def test_one_rank_step_matches_jax_on_a_one_device_mesh(one_rank,
                                                         num_objects):
     """Three frames at max_kl = 1 (one compiled JAX step): skewed start
     weights force the first resample, later ones come from the trigger;
-    the one-rank path is the lineage gather (``paths == ["local"]``)."""
+    the one-rank path is the lineage gather (``paths == ["local"]``).
+    Two objects take a fixed slack: the port's automatic slack is per
+    object, JAX's measures both meshes in the finer one's units."""
     K_cam = np.array([[48.0, 0, 16], [0, 48.0, 16], [0, 0, 1.0]])
     jcam = jcamera.make_camera(K_cam, 32, 32)
     jmeshes = [jmesh.l_shape_mesh(),
@@ -288,14 +294,15 @@ def test_one_rank_step_matches_jax_on_a_one_device_mesh(one_rank,
     jbp = jbeam.make_beam_params(model_sigma=0.005, sigma_factor=0.0)
     jop = jocc.make_occlusion_params()
     jtp = jtrans.make_transition_params(0.3, 1.5, damping=6.0)
+    slack = None if num_objects == 1 else FIXED_SLACK
     js = jrp.make_fused_sensor(jmeshes, jcam, jbp, jop, interpret=True,
-                               occ_dtype=jnp.float32)
+                               occ_dtype=jnp.float32, bary_slack=slack)
     ps = fs.make_fused_sensor(
         [interop.mesh_from_numpy(fields(m)) for m in jmeshes],
         camera.make_camera(K_cam, 32, 32),
         interop.beam_params_from_numpy(fields(jbp)),
         interop.occlusion_params_from_numpy(fields(jop)),
-        occ_dtype=torch.float32)
+        occ_dtype=torch.float32, bary_slack=slack)
     tp = interop.transition_params_from_numpy(fields(jtp))
     P, Np = 96, 1024
     refs = REFS[:num_objects]

@@ -81,7 +81,9 @@ REFS = np.array([[-0.02, 0.0, 0.62, 1, 0, 0, 0],
 def test_rbcpf_steps_match_jax_with_replayed_draws(num_objects):
     """Three steps: a forced resample (max_kl = -1), then two on the KL
     trigger (max_kl = 1). With two objects the first
-    block's sensor call must not commit (the port's in-place scatter)."""
+    block's sensor call must not commit (the port's in-place scatter),
+    and both sensors take a fixed slack: the port's automatic slack is
+    per object, JAX's measures both meshes in the finer one's units."""
     K_cam = np.array([[48.0, 0, 16], [0, 48.0, 16], [0, 0, 1.0]])
     jcam, pcam = (jcamera.make_camera(K_cam, 32, 32),
                   camera.make_camera(K_cam, 32, 32))
@@ -91,12 +93,13 @@ def test_rbcpf_steps_match_jax_with_replayed_draws(num_objects):
     jbp = jbeam.make_beam_params(model_sigma=0.005, sigma_factor=0.0)
     jop = jocc.make_occlusion_params()
     jtp = jtrans.make_transition_params(0.3, 1.5, damping=6.0)
+    slack = None if num_objects == 1 else 0.1
     js = jrp.make_fused_sensor(jmeshes, jcam, jbp, jop, interpret=True,
-                               occ_dtype=jnp.float32)
+                               occ_dtype=jnp.float32, bary_slack=slack)
     ps = fs.make_fused_sensor(
         pmeshes, pcam, interop.beam_params_from_numpy(fields(jbp)),
         interop.occlusion_params_from_numpy(fields(jop)),
-        occ_dtype=torch.float32)
+        occ_dtype=torch.float32, bary_slack=slack)
     tp = interop.transition_params_from_numpy(fields(jtp))
     P, N = 96, 1024
     refs = REFS[:num_objects]
