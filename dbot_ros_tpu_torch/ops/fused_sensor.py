@@ -31,6 +31,7 @@ from dbot_ros_tpu_torch.models.transition import as_dt
 from dbot_ros_tpu_torch.ops import kernels
 from dbot_ros_tpu_torch.utils import se3
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
+from dbot_ros_tpu_torch.utils.profiling import span
 
 _TINY = 1e-30
 LANES = 128
@@ -623,7 +624,9 @@ class FusedSensor:
         caps = self.caps(plan.cand.shape[0])
         level = len(caps)
         if caps:
-            n_active, n_uniq = (int(v) for v in plan.book["counts"].tolist())
+            with span("dbot.read.ladder"):
+                counts = plan.book["counts"].tolist()
+            n_active, n_uniq = (int(v) for v in counts)
             level = next((i for i, (pcap, tcap) in enumerate(caps)
                           if (pcap is None or n_active <= pcap)
                           and (tcap is None or n_uniq < tcap)), len(caps))

@@ -44,6 +44,10 @@ import torch
 
 from dbot_ros_tpu_torch.runtime.metrics import FrameMetrics, MetricsLog
 from dbot_ros_tpu_torch.utils import se3
+from dbot_ros_tpu_torch.utils.profiling import span
+
+
+_END = object()      # the source is exhausted
 
 
 @dataclasses.dataclass
@@ -145,7 +149,8 @@ def run(tracker, source, initial_pose=None,
         frame. Its ``find_object`` frames join ``reinit_frames``.
     """
     frames = iter(source)
-    first = next(frames)
+    with span("dbot.loop.source"):
+        first = next(frames)
 
     already_initialized = (initial_pose is None
                            and getattr(tracker, "belief", None) is not None)
@@ -185,8 +190,6 @@ def run(tracker, source, initial_pose=None,
         """Apply queued commands; hold here while paused (no frame is
         pulled, so a paused replay resumes where it stopped). False =
         shutdown."""
-        if service is None:
-            return True
         while True:
             if service.apply_pending(tracker, frame, reinit_kwargs):
                 return False
@@ -199,8 +202,9 @@ def run(tracker, source, initial_pose=None,
         from dbot_ros_tpu_torch.runtime.initializer import reanchor_tracker
         t_start = time.perf_counter()
         try:
-            placed = reanchor_tracker(tracker, frame.depth,
-                                      **(reinit_kwargs or {}))
+            with span("dbot.loop.reanchor"):
+                placed = reanchor_tracker(tracker, frame.depth,
+                                          **(reinit_kwargs or {}))
             why = "no foreground to re-anchor on"
         except Exception as e:  # noqa: BLE001 - keep tracking
             placed, why = None, (f"re-anchor failed: {type(e).__name__}: "
@@ -218,11 +222,41 @@ def run(tracker, source, initial_pose=None,
                                   before, after))
         return True
 
+    def watch(frame, info):
+        """Feed the watchdog the frame's step info; when it trips
+        (tracking lost), re-acquire globally on the current frame.
+        Contained: a degenerate frame (an all-NaN burst, exactly the
+        frames that trip the dog) must not kill the run; the watchdog
+        re-arms and retries on a later frame."""
+        nonlocal after_reanchor
+        if not watchdog.update(info, num_particles):
+            return
+        from dbot_ros_tpu_torch.runtime.initializer import initialize_tracker
+        t_search = time.perf_counter()
+        try:
+            # flip-aware recovery: a re-init after a lock-in races at
+            # least 2 beam hypotheses, because the wrong basin can win
+            # the single-frame search argmax
+            initialize_tracker(tracker, frame.depth,
+                               **{"min_hypotheses": 2,
+                                  "reuse_background": True,
+                                  **(reinit_kwargs or {})})
+            reinit_frames.append(frame.index)
+            reinit_seconds.append(time.perf_counter() - t_search)
+            # the belief is placed on this frame: the next one after the
+            # search's gap is re-anchored
+            after_reanchor = False
+        except Exception as e:  # noqa: BLE001 - keep tracking
+            print(f"watchdog re-init failed on frame {frame.index}: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr)
+
     def handle(frame):
         nonlocal after_reanchor
         belief = getattr(tracker, "belief", None)
-        if not pump_service(frame):
-            return False                          # shutdown requested
+        if service is not None:
+            with span("dbot.loop.service"):
+                if not pump_service(frame):
+                    return False                  # shutdown requested
         # a command re-initialized the tracker on this frame
         commanded = getattr(tracker, "belief", None) is not belief
         skipped = getattr(frame, "skipped", None)
@@ -238,11 +272,13 @@ def run(tracker, source, initial_pose=None,
                 dt = max(base_dt, reinit_max_dt)
         trial_n = getattr(tracker, "trial_active", None)
         t0 = time.perf_counter()
-        if dt is None:
-            poses, info = tracker.track(frame.depth)
-        else:
-            poses, info = tracker.track(frame.depth, dt=dt)
-        poses = poses.detach().cpu().numpy()     # waits for the device
+        with span("dbot.track"):
+            if dt is None:
+                poses, info = tracker.track(frame.depth)
+            else:
+                poses, info = tracker.track(frame.depth, dt=dt)
+        with span("dbot.read.pose"):
+            poses = poses.detach().cpu().numpy()  # waits for the device
         if poses.ndim == 1:
             poses = poses[None]
         latency = time.perf_counter() - t0
@@ -250,50 +286,36 @@ def run(tracker, source, initial_pose=None,
         if frame.ground_truth is not None:
             gt = np.asarray(frame.ground_truth)
             gt_out.append(gt if gt.ndim == 2 else gt[None])
-        m = FrameMetrics.from_info(frame.index, info, latency)
+        with span("dbot.read.metrics"):
+            m = FrameMetrics.from_info(frame.index, info, latency)
         m.skipped = skipped
         m.trial_hypotheses = trial_n
         log.append(m)
         if on_frame is not None:
-            on_frame(frame, poses, info)
+            with span("dbot.loop.on_frame"):
+                on_frame(frame, poses, info)
         after_reanchor = anchored
-        if watchdog is not None and watchdog.update(info, num_particles):
-            # tracking lost: global re-acquisition on the current frame.
-            # Contained: a degenerate frame (an all-NaN burst, exactly the
-            # frames that trip the dog) must not kill the run; the
-            # watchdog re-arms and retries on a later frame.
-            from dbot_ros_tpu_torch.runtime.initializer import \
-                initialize_tracker
-            t_search = time.perf_counter()
-            try:
-                # flip-aware recovery: a re-init after a lock-in races at
-                # least 2 beam hypotheses, because the wrong basin can
-                # win the single-frame search argmax
-                initialize_tracker(tracker, frame.depth,
-                                   **{"min_hypotheses": 2,
-                                      "reuse_background": True,
-                                      **(reinit_kwargs or {})})
-                reinit_frames.append(frame.index)
-                reinit_seconds.append(time.perf_counter() - t_search)
-                # the belief is placed on this frame: the next one after
-                # the search's gap is re-anchored
-                after_reanchor = False
-            except Exception as e:  # noqa: BLE001 - keep tracking
-                print(f"watchdog re-init failed on frame {frame.index}: "
-                      f"{type(e).__name__}: {e}", file=sys.stderr)
+        if watchdog is not None:
+            with span("dbot.loop.watchdog"):
+                watch(frame, info)
         if checkpoint_path and checkpoint_every \
                 and (frame.index + 1) % checkpoint_every == 0:
             from dbot_ros_tpu_torch.runtime.checkpoint import save_belief
-            save_belief(checkpoint_path, tracker.belief,
-                        generator=getattr(tracker, "generator", None))
+            with span("dbot.loop.checkpoint"):
+                save_belief(checkpoint_path, tracker.belief,
+                            generator=getattr(tracker, "generator", None))
         if service is not None:
-            service.update_status(frame.index, poses)
+            with span("dbot.loop.service"):
+                service.update_status(frame.index, poses)
         return True
 
-    if handle(first):
-        for frame in frames:
+    frame = first
+    while frame is not _END:
+        with span("dbot.loop.frame"):
             if not handle(frame):
                 break
+        with span("dbot.loop.source"):
+            frame = next(frames, _END)
 
     if service is not None:
         reinit_frames = reinit_frames + list(service.reinit_frames)

@@ -42,6 +42,7 @@ from dbot_ros_tpu_torch.trackers.particle import (_host, build_camera,
 from dbot_ros_tpu_torch.utils import graphs
 from dbot_ros_tpu_torch.utils.camera import CameraModel, preprocess_depth
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh
+from dbot_ros_tpu_torch.utils.profiling import span
 
 # at most this many hypotheses race in a trial
 MAX_HYPOTHESES = 4
@@ -174,7 +175,8 @@ class GaussianTracker:
             return prog.keep("belief", new), prog.keep("info", info)
 
         new, info = prog.run("step", step)
-        return graphs.copy_out(new), graphs.copy_out(info)
+        with span("dbot.step.copy_out"):
+            return graphs.copy_out(new), graphs.copy_out(info)
 
     @property
     def centers(self):
@@ -203,10 +205,11 @@ class GaussianTracker:
 
     def _frame(self, depth_image):
         """A depth image → the update's flat pixel subset."""
-        z = preprocess_depth(torch.as_tensor(
-            depth_image, dtype=torch.float32,
-            device=self.device).reshape(-1))
-        return z if self._pixel_idx is None else z[self._pixel_idx]
+        with span("dbot.track.upload"):
+            z = preprocess_depth(torch.as_tensor(
+                depth_image, dtype=torch.float32,
+                device=self.device).reshape(-1))
+            return z if self._pixel_idx is None else z[self._pixel_idx]
 
     def _make_belief(self, pose_center, first_frame):
         c = self.config
@@ -372,12 +375,12 @@ class GaussianTracker:
             self._smoothed = self.belief.mean[..., :7]
         else:
             self.belief, info = self._step(self.belief, z, dt)
-        new_pose = self.belief.mean[..., :7]
-        self._smoothed = base.moving_average_pose(
-            self._smoothed, new_pose,
-            self.config.moving_average_update_rate)
-        if self._single:
-            return (base.to_model_frame(self._smoothed, self.mesh.center),
-                    info)
-        return base.to_model_frame(self._smoothed, self.centers), info
+        with span("dbot.track.smooth"):
+            self._smoothed = base.moving_average_pose(
+                self._smoothed, self.belief.mean[..., :7],
+                self.config.moving_average_update_rate)
+            poses = base.to_model_frame(
+                self._smoothed, self.mesh.center if self._single
+                else self.centers)
+        return poses, info
 

@@ -55,6 +55,7 @@ from dbot_ros_tpu_torch.utils.camera import (CameraModel,
                                              default_kinect_camera,
                                              make_camera, preprocess_depth)
 from dbot_ros_tpu_torch.utils.mesh import TriangleMesh, load_obj
+from dbot_ros_tpu_torch.utils.profiling import span
 
 # at most this many hypotheses race as islands
 MAX_ISLANDS = 4
@@ -298,14 +299,18 @@ class ParticleTracker:
         dt = prog.scalar("dt", dt)
         P, K = bel.states.shape[:2]
         resamples = self.config.max_kl_divergence < rbcpf.NEVER_RESAMPLE_KL
-        noise = rbcpf.draw_noise([rbcpf.BlockNoise(
-            prog.buffer(f"e1.{b}", (P, 6)), prog.buffer(f"e2.{b}", (P, 6)),
-            prog.buffer(f"u.{b}", ()) if resamples else None)
-            for b in range(K)], generator)
+        with span("dbot.step.noise"):
+            noise = rbcpf.draw_noise([rbcpf.BlockNoise(
+                prog.buffer(f"e1.{b}", (P, 6)),
+                prog.buffer(f"e2.{b}", (P, 6)),
+                prog.buffer(f"u.{b}", ()) if resamples else None)
+                for b in range(K)], generator)
         info = None
         for b in range(K):
             info = self._block(prog, b, bel, z, dt, noise[b])
-        return dataclasses.replace(bel), graphs.copy_out(info)
+        with span("dbot.step.copy_out"):
+            info = graphs.copy_out(info)
+        return dataclasses.replace(bel), info
 
     def _block(self, prog, b, bel, z, dt, nb):
         """Coordinate block ``b`` of a step (``rbcpf.program_block``): with
@@ -348,9 +353,10 @@ class ParticleTracker:
         """
         if self.belief is None:
             raise RuntimeError("call initialize(poses) before track()")
-        z = preprocess_depth(torch.as_tensor(
-            depth_image, dtype=torch.float32,
-            device=self.device).reshape(-1))
+        with span("dbot.track.upload"):
+            z = preprocess_depth(torch.as_tensor(
+                depth_image, dtype=torch.float32,
+                device=self.device).reshape(-1))
         dt = float(np.float32(self._dt if dt is None else dt))
         trial = self._trial
         if trial:
@@ -384,11 +390,12 @@ class ParticleTracker:
         else:
             self.belief, info = self._step(self.belief, z, dt,
                                            self.generator)
-        new_poses = info.mean_state[:, :7]
-        self._smoothed = base.moving_average_pose(
-            self._smoothed, new_poses,
-            self.config.moving_average_update_rate)
-        return base.to_model_frame(self._smoothed, self.centers), info
+        with span("dbot.track.smooth"):
+            self._smoothed = base.moving_average_pose(
+                self._smoothed, info.mean_state[:, :7],
+                self.config.moving_average_update_rate)
+            poses = base.to_model_frame(self._smoothed, self.centers)
+        return poses, info
 
 
 def _mean_pose(belief: rbcpf.ParticleBelief):

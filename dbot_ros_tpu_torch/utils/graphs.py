@@ -56,13 +56,14 @@ from typing import Callable, Dict, Hashable, Optional
 import torch
 
 from dbot_ros_tpu_torch.ops import kernels
+from dbot_ros_tpu_torch.utils.profiling import span
 
-# (wrapper, attribute) of every launch counter a replay must keep
-COUNTERS = ((kernels.fused_loglik, "launches"),
-            (kernels.gather_pixel_rows, "launches"),
-            (kernels.scatter_pixel_rows, "launches"),
-            (kernels.lineage_gather, "launches"),
-            (kernels.lineage_gather, "two_width_launches"))
+# (wrapper, attribute) of every launch counter a replay must keep: each
+# wrapper's launches, the exchanges' too (a captured ``("exchange", b,
+# path)`` graph launches ``age_pixel_rows``)
+COUNTERS = tuple((w, "launches") for w in (
+    *kernels.WRAPPERS.values(), *kernels.EXCHANGE_WRAPPERS.values())) + (
+    (kernels.lineage_gather, "two_width_launches"),)
 
 
 def resolve_capture(device, capture=None) -> bool:
@@ -230,16 +231,22 @@ class StepProgram:
         """``fn()``, which reads and writes this program's buffers and
         returns kept ones: eagerly without capture; with capture, a replay
         of the graph of ``key`` (captured at its first call, whose eager
-        run is that call's result)."""
+        run is that call's result). A running profiler records the host's
+        side of it as the span ``dbot.step.run:<key's first element>``
+        (``dbot.step.capture:...`` for a first call)."""
+        name = key[0] if isinstance(key, tuple) else key
         if not self.capture:
-            return fn()
+            with span("dbot.step.run", name):
+                return fn()
         done = self._graphs.get(key)
         if done is None:
-            return self._first_call(key, fn)
-        done.graph.replay()
-        for (obj, name), d in zip(self.counters, done.deltas):
-            if d:
-                _set(obj, name, _get(obj, name) + d)
+            with span("dbot.step.capture", name):
+                return self._first_call(key, fn)
+        with span("dbot.step.run", name):
+            done.graph.replay()
+            for (obj, attr), d in zip(self.counters, done.deltas):
+                if d:
+                    _set(obj, attr, _get(obj, attr) + d)
         return done.outputs
 
     def _counts(self):

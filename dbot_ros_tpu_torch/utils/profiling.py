@@ -1,81 +1,61 @@
-"""Lightweight timing and printing helpers (ref: fl/util/profiling.hpp).
+"""Named spans of the program's host work, recorded by a running profiler.
 
-Port of ``dbot_ros_tpu/utils/profiling.py``. The reference's
-``INIT_PROFILING`` / ``MEASURE("label")`` / ``PV(x)`` wall-clock macros
-become helpers that understand asynchronous CUDA launches: a measurement
-that should include the device's work waits for it with
-``torch.cuda.synchronize`` on every CUDA device that holds one of the
-given tensors (tensors on the CPU are already computed). For kernel
-times use CUDA events or ``torch.profiler``; these helpers are the
-printf-style layer.
+Departs from ``dbot_ros_tpu/utils/profiling.py`` (ref:
+fl/util/profiling.hpp), whose ``PV`` / ``Stopwatch`` / ``measure`` print
+wall-clock times after blocking on the computation. Here a span keeps no
+clock and prints nothing: :func:`span` marks where a piece of the loop,
+the trackers or the step program runs, and ``torch.profiler`` records it
+as a host event of that name, in the same event stream as the aten ops
+and the device's kernels, on their clock. Without a running profiler a
+span costs one flag test and enters nothing.
+
+A span is recorded as an op (``torch._C._profiler._RecordFunctionFast``),
+not as a user annotation (``torch.autograd.profiler.record_function``):
+the profiler copies a user annotation onto the device's timeline as an
+event over the kernels launched inside it, which makes the device look
+busy through every span, and a user annotation costs about five times as
+much to record.
+
+Spans are switched on by nothing but a running profiler: an operator
+who wants them wraps the loop in one::
+
+    with torch.profiler.profile() as prof:
+        node.run(tracker, source)
+    prof.export_chrome_trace("trace.json")
+
+Names start with ``dbot.``; a key follows a colon
+(``dbot.step.run:propose``). The profiler records only the thread that
+started it, and a CUDA graph's replay runs no Python: code inside a
+captured graph, or on a camera thread, carries no span.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Optional
-
 import torch
+from torch.autograd import profiler as _profiler
+
+_Recorded = torch._C._profiler._RecordFunctionFast
 
 
-def pv(name, value):
-    """Print-value helper (ref: the PV macro)."""
-    print(f"{name}: {value}")
-    return value
+class _Off:
+    """The span of a process with no profiler running: enters nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-def wait_for(outputs) -> None:
-    """Wait until the device work producing ``outputs`` (a tensor, or
-    lists, tuples and dicts of them) has finished."""
-    devices = set()
-    stack = [outputs]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+_OFF = _Off()
 
 
-class Stopwatch:
-    """INIT_PROFILING/MEASURE analog that waits for the device.
-
-    >>> sw = Stopwatch()
-    >>> out = step(belief, frame)
-    >>> sw.measure("filter step", out)    # waits for `out`, prints ms
-    """
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-
-    def measure(self, label: str, block_on=None, reset: bool = True):
-        """Print and return the seconds since the last reset, after the
-        device work behind ``block_on`` has finished."""
-        if block_on is not None:
-            wait_for(block_on)
-        dt = time.perf_counter() - self._t0
-        print(f"{label}: {dt * 1000:.3f} ms")
-        if reset:
-            self.reset()
-        return dt
-
-
-@contextlib.contextmanager
-def measure(label: str, block_on_result: Optional[list] = None):
-    """Context-manager timing; append device outputs to the yielded list
-    to include their completion in the measurement."""
-    t0 = time.perf_counter()
-    out: list = block_on_result if block_on_result is not None else []
-    yield out
-    if out:
-        wait_for(out)
-    print(f"{label}: {(time.perf_counter() - t0) * 1000:.3f} ms")
+def span(name: str, key=None):
+    """A context manager marking the host work inside it as ``name``
+    (``name:key`` where ``key`` is given) for a running profiler; a no-op
+    singleton when none runs, so that the name is not even built."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Recorded(name if key is None else f"{name}:{key}")

@@ -390,6 +390,27 @@ def test_age_pixel_rows_matches_plain(cuda, dtype):
         kernels.age_pixel_rows(q[:, :p - 2].contiguous(), geff, pi)
 
 
+def test_a_replayed_exchange_graph_counts_its_row_aging(cuda):
+    """A captured ``("exchange", b, path)`` graph that ages the map's rows
+    (as ``dist_filter._exchange`` does on a frame that moves columns)
+    counts one ``age_pixel_rows`` launch a call, replays included, and
+    each replay ages the rows it is given."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    prog = graphs.StepProgram(cuda, capture=True)
+    q = prog.keep("q", torch.rand((64, 1152), generator=g, device=cuda))
+    geff = prog.keep("geff", torch.full((64,), 0.6, device=cuda))
+    pi = prog.keep("pi", torch.tensor(0.25, device=cuda))
+    before = kernels.age_pixel_rows.launches
+    for i in range(4):
+        q.uniform_(generator=g)
+        out = prog.run(("exchange", 0, "moves"), lambda: prog.keep(
+            "aged", kernels.age_pixel_rows(q, geff, pi)))
+        torch.testing.assert_close(
+            out, kernels.age_pixel_rows_plain(q, geff, pi), rtol=0, atol=0)
+    assert prog.graph_count == 1
+    assert kernels.age_pixel_rows.launches == before + 4
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("row_bytes", [16, 20_224, 20_240])
 def test_gather_rows_edges(cuda, dtype, row_bytes):

@@ -1,5 +1,5 @@
-"""Port parity of the generic filter modules: ``models/distributions.py``,
-``filters/pf.py`` and ``utils/profiling.py``.
+"""Port parity of the generic filter modules: ``models/distributions.py``
+and ``filters/pf.py``.
 
 Tolerances: log-densities against JAX's on the same numpy inputs 1e-5
 (float32, rtol 1e-5); samplers by their moments over 200k draws (mean
@@ -9,8 +9,6 @@ noise is injected, against JAX's formula with JAX's noise (1e-5); one
 weights 1e-5 and equal parents.
 """
 
-import contextlib
-import io
 import math
 
 import jax
@@ -23,7 +21,6 @@ from dbot_ros_tpu.filters import pf as jpf
 from dbot_ros_tpu.models import distributions as jd
 from dbot_ros_tpu_torch.filters import pf
 from dbot_ros_tpu_torch.models import distributions as d
-from dbot_ros_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -245,50 +242,3 @@ def test_pf_tracks_a_constant_and_resamples_by_ess():
     after = pf.step(before, None, lambda p: p,
                     lambda p, o: torch.zeros_like(p), u=0.5)
     assert torch.equal(after.particles, before.particles)
-
-
-# ---------------------------------------------------------------------------
-# utils/profiling.py
-# ---------------------------------------------------------------------------
-
-def test_stopwatch_and_measure_print_and_return():
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        assert profiling.pv("answer", 42) == 42
-        sw = profiling.Stopwatch()
-        x = torch.ones(100) * 2
-        dt = sw.measure("step", x)
-        dt2 = sw.measure("nested", {"a": [x, (x,)]}, reset=False)
-        with profiling.measure("block") as out:
-            out.append(torch.zeros(3))
-        with profiling.measure("empty"):
-            pass
-    lines = buf.getvalue().splitlines()
-    assert lines[0] == "answer: 42"
-    assert [ln.split(":")[0] for ln in lines[1:]] == [
-        "step", "nested", "block", "empty"]
-    assert all(ln.endswith(" ms") for ln in lines[1:])
-    assert 0 <= dt and 0 <= dt2
-    profiling.wait_for([torch.zeros(1), "not a tensor", None])
-
-
-def test_profiling_waits_for_the_card(monkeypatch):
-    """With a tensor on a CUDA device the helpers synchronise that
-    device (checked here through the call they make)."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda dev=None: calls.append(dev))
-
-    class FakeCuda(torch.Tensor):
-        is_cuda = True
-
-        @property
-        def device(self):
-            return torch.device("cuda", 1)
-
-    fake = torch.zeros(2).as_subclass(FakeCuda)
-    with contextlib.redirect_stdout(io.StringIO()):
-        profiling.Stopwatch().measure("x", [fake, torch.zeros(1)])
-        with profiling.measure("y") as out:
-            out.append(fake)
-    assert calls == [torch.device("cuda", 1)] * 2
