@@ -5,6 +5,8 @@ the compared numbers and whether they pass the current limits.
 
     python3 -m portbench.core.calibrate --workload pf10k.stream \
         --seeds 12 --seconds 3 [--control] [--first-seed N]
+
+Seed i is ``first-seed + 7919 * i``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def main(argv=None) -> int:
     from portbench.core import runner
     from portbench.reference import control
 
-    factory = (control.factory(control.obj_text_from_settings)
+    factory = (control.factory(control.obj_texts_from_settings)
                if args.control else None)
     for i in range(args.seeds):
         seed = args.first_seed + 7919 * i

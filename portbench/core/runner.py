@@ -51,7 +51,7 @@ class FrameRec:
     track0: Optional[float] = None  # ``track`` called
     track1: Optional[float] = None  # ``track`` returned
     done: Optional[float] = None    # the pose on the host (``on_frame``)
-    pose: Optional[np.ndarray] = None
+    pose: Optional[np.ndarray] = None  # the published poses (K, 7)
     level: Optional[int] = None     # the PF sensor's ladder level
     resampled: Optional[bool] = None
     skipped: Optional[int] = None
@@ -79,6 +79,7 @@ class Run:
     host_trace: Optional[trace_mod.Trace] = None  # the host ops' stretch
     num_pixels: int = 0
     num_particles: int = 0
+    objects: int = 1           # K, the tracked objects (coordinate blocks)
     camera_lateness_s: float = 0.0
     untraced_fps: Optional[float] = None  # frames a second before the trace
 
@@ -322,6 +323,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         _merge(params, overrides.get("traffic", {}))
         _merge(conf, {k: v for k, v in overrides.items()
                       if k in ("assumed", "limits")})
+    spec.objects(conf, params)
     settings["seed"] = int(traffic_mod.sub_seed(seed, "tracker")
                            .generate_state(1)[0])
     device = torch.device(device)
@@ -330,14 +332,16 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         torch.cuda.reset_peak_memory_stats()
 
     # -- set-up: the scene, the frames, the tracker, the warm-up ---------
-    obj_text = scene.object_obj_text(conf["assumed"]["mesh"])
+    obj_texts = [scene.object_obj_text(m) for m in spec.meshes(conf)]
     tmp = tempfile.mkdtemp(prefix="portbench-")
-    obj_path = os.path.join(tmp, "object.obj")
-    with open(obj_path, "w") as fh:
-        fh.write(obj_text)
-    settings["object"]["meshes"] = [obj_path]
+    settings["object"]["meshes"] = []
+    for k, text in enumerate(obj_texts):
+        path = os.path.join(tmp, f"object{k}.obj")
+        with open(path, "w") as fh:
+            fh.write(text)
+        settings["object"]["meshes"].append(path)
     stages = {"imports": time.perf_counter()}
-    traffic = traffic_mod.make(params, settings, obj_text, seed, device)
+    traffic = traffic_mod.make(params, settings, obj_texts, seed, device)
     if device.type == "cuda":
         # the renderer's peak is the harness's, not the program's
         torch.cuda.synchronize()
@@ -366,9 +370,13 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         if frame.index == 0:
             start["pose"] = np.array(poses, np.float64)
             start["info"] = info
+            if traffic.objects > 1:
+                # the particles carried out of the step give the check
+                # the resampling parents of its blocks before the last
+                start["carried"] = tracker.belief.states.clone()
 
     stages["tracker"] = time.perf_counter()
-    node.run(tracker, warm_source(), initial_pose=traffic.truth[0],
+    node.run(tracker, warm_source(), initial_pose=traffic.poses(0),
              on_frame=warm_frame)
     stages["warm-up"] = time.perf_counter()
     if traced:
@@ -487,7 +495,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
 
     run = Run(cell=cell, kind=kind, settings=settings, traffic=traffic,
               seconds=seconds, frames=frames, t_start=t_start, t_end=t_end,
-              num_particles=int(settings.get("evaluation_count", 0)))
+              num_particles=int(settings.get("evaluation_count", 0)),
+              objects=traffic.objects)
     run.num_pixels = int(traffic_mod.tracker_frame(traffic, 0).size)
     for m in track_run.metrics.records:
         rec = by_index.get(m.frame)
@@ -517,11 +526,11 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
 
     # -- the check against the reference, and the frames' work counts ---
-    verdict = checks_mod.check(kind, settings, obj_text, conf, traffic,
+    verdict = checks_mod.check(kind, settings, obj_texts, conf, traffic,
                                start, check.taken, device)
     del inner, check
     if kind == "particle" and run.trace is not None:
-        _count_work(run, settings, obj_text, device)
+        _count_work(run, settings, obj_texts, device)
     result = report.result(run, spec, traced, setup_s, peak, device,
                            verdict)
     result["info"]["window_unix"] = [unix_start, unix_end]
@@ -530,19 +539,19 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     return result
 
 
-def _count_work(run: Run, settings, obj_text, device):
+def _count_work(run: Run, settings, obj_texts, device):
     """The candidate table's counts of every frame of the device trace,
-    from the reference's own candidate pass at the frame's true pose:
-    what the fused likelihood's work count
-    (``portbench/roofline/fused_loglik.py``) reads."""
-    ref = pf.ParticleReference(settings, obj_text, device)
+    from the reference's own candidate pass at the frame's true poses
+    (every object's triangles in one table): what the fused likelihood's
+    work count (``portbench/roofline/fused_loglik.py``) reads."""
+    ref = pf.ParticleReference(settings, obj_texts, device)
     traffic = run.traffic
     counts = {}
     for f in run.traced_frames():
         i = (f.index if traffic.loop == "closed"
              else traffic.warmup_frames + f.index) % traffic.period
         if i not in counts:
-            counts[i] = ref.candidate_counts(traffic.truth[i])
+            counts[i] = ref.candidate_counts(traffic.poses(i))
         f.counts = counts[i]
 
 

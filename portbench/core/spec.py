@@ -6,6 +6,19 @@ is ``portbench/traffic/<traffic>.json``; a per-layer metric's reader is
 ``portbench/metrics/<name>.py``; a kernel's work count is
 ``portbench/roofline/<kernel>.py``. Adding any of these is adding files
 and entries: nothing here names one.
+
+A scene holds K >= 1 tracked objects. A configuration's ``assumed`` gives
+either ``mesh`` (one object) or ``meshes`` (a list, one spec per object,
+in the tracker's object order); a spec's ``kind`` is ``ellipsoid`` (the
+default: an icosphere of ``subdivisions`` stretched to ``semi_axes_m``)
+or ``box`` (side lengths ``size_m``). A mix gives either ``motion`` (one
+object) or ``motions`` (one per object, in the same order); a motion may
+carry ``offset_m`` (x, y, z), added to its sway. A cell whose
+configuration and mix count different objects is refused
+(:func:`objects`), and so is one of K > 1 objects with a Gaussian
+configuration or a ``native`` (live camera) mix: neither is supported.
+Nor is K > 2: the check's recovery of the program's resampling parents
+(``reference/pf.py``) is written and read for one block before the last.
 """
 
 from __future__ import annotations
@@ -47,6 +60,50 @@ def config(name: str) -> dict:
 
 def traffic(name: str) -> dict:
     return json.loads((PKG / "traffic" / f"{name}.json").read_text())
+
+
+def _one_or_list(d: dict, one: str, many: str, what: str) -> list:
+    if (one in d) == (many in d):
+        raise ValueError(f"{what} must give exactly one of {one!r} and "
+                         f"{many!r}")
+    if one in d:
+        return [d[one]]
+    if not isinstance(d[many], list) or not d[many]:
+        raise ValueError(f"{what}: {many!r} must be a non-empty list")
+    return list(d[many])
+
+
+def meshes(conf: dict) -> list:
+    """The mesh specs of a configuration, one per tracked object."""
+    return _one_or_list(conf["assumed"], "mesh", "meshes",
+                        "a configuration's 'assumed'")
+
+
+def motions(params: dict) -> list:
+    """The motions of a mix, one per tracked object."""
+    return _one_or_list(params, "motion", "motions", "a traffic mix")
+
+
+def objects(conf: dict, params: dict) -> int:
+    """K, the number of tracked objects of a cell, once its configuration
+    and its mix agree on it and the cell's path supports it."""
+    k, m = len(meshes(conf)), len(motions(params))
+    if k != m:
+        raise ValueError(
+            f"the configuration tracks {k} object(s) but the mix moves "
+            f"{m}: give 'assumed.meshes' and the mix's 'motions' one entry "
+            "per object")
+    if k > 1 and conf["tracker"] != "particle":
+        raise ValueError(f"{k} objects with a {conf['tracker']!r} tracker: "
+                         "only the particle tracker takes several objects")
+    if k > 2:
+        raise ValueError(f"{k} objects: the check recovers the resampling "
+                         "parents of one block before the last, so a scene "
+                         "holds at most 2")
+    if k > 1 and params.get("resolution") == "native":
+        raise ValueError(f"{k} objects with a 'native' (live camera) mix: "
+                         "the live path takes one object")
+    return k
 
 
 def _applies(metric: dict, cell: str, reported=None) -> bool:

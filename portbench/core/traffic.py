@@ -6,10 +6,13 @@ it; ``open``: a camera thread on a fixed schedule at ``rate_hz``), the
 period of the playback in frames, the resolution frames are made at
 (``tracker``: the configuration's downsampled camera, float32 metres;
 ``native``: full resolution, uint16 millimetres through the camera
-transport), the object's trajectory, the sensor noise, an occluder, a
-dropout burst and the warm-up length. Everything is drawn from the run's
-seed; the frames are rendered on the device by the reference's exact
-renderer and handed over from host memory.
+transport), each tracked object's trajectory (``motion`` for one object,
+``motions`` for K, one per object: ``core/spec.py``), the sensor noise,
+an occluder, a dropout burst and the warm-up length. Everything is drawn
+from the run's seed: object 0's trajectory from the ``trajectory``
+stream, object k >= 1's from ``trajectory.<k>``. The frames are rendered
+on the device by the reference's exact renderer, every object and the
+occluder in one scene, and handed over from host memory.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from portbench.core import spec
 from portbench.reference import scene
 
 RENDER_CHUNK = 32       # frames a call of the renderer
@@ -32,10 +36,19 @@ class Traffic:
     rate_hz: float                 # the camera's rate (open loop, and dt)
     period: int
     warmup_frames: int
-    truth: np.ndarray              # (period, 7) model-frame poses, float32
+    truth: np.ndarray              # (period, 7) model-frame poses, float32;
+    #                                (period, K, 7) with K > 1 objects
     frames: np.ndarray             # (period, H, W) float32 m | uint16 mm
     native: bool                   # frames are uint16 at full resolution
     downsampling: int
+
+    @property
+    def objects(self) -> int:
+        return 1 if self.truth.ndim == 2 else self.truth.shape[1]
+
+    def poses(self, i: int) -> np.ndarray:
+        """Frame ``i``'s true model-frame poses, (K, 7)."""
+        return self.truth[i % self.period].reshape(self.objects, 7)
 
 
 def sub_seed(seed: int, tag: str) -> np.random.SeedSequence:
@@ -52,27 +65,35 @@ def torch_generator(seed: int, tag: str, device) -> torch.Generator:
     return g
 
 
-def make(params: dict, config: dict, obj_text: str, seed: int,
+def make(params: dict, config: dict, obj_texts, seed: int,
          device) -> Traffic:
-    """The mix ``params`` for the configuration ``config`` (its camera
-    and the mesh ``obj_text``) from ``seed``, rendered on ``device``."""
-    rng = np.random.default_rng(sub_seed(seed, "trajectory"))
+    """The mix ``params`` for the configuration ``config`` (its camera)
+    and the meshes ``obj_texts`` (OBJ texts, one per tracked object, in
+    the order of the mix's motions, as ``spec.objects`` has checked
+    them) from ``seed``, rendered on ``device``."""
+    motions = spec.motions(params)
     period = int(params["period_frames"])
     rate = float(params["rate_hz"])
     native = params["resolution"] == "native"
     cam_cfg = config["camera"]
     camera = scene.camera_for(cam_cfg, device, native=native)
-    truth = scene.trajectory(params["motion"], rng, period, rate)
-    truth_t = torch.as_tensor(truth, dtype=torch.float32, device=device)
-    mesh = scene.object_mesh(obj_text, center=False, device=device)
+    truths = [scene.trajectory(
+        motion, np.random.default_rng(sub_seed(
+            seed, "trajectory" if k == 0 else f"trajectory.{k}")),
+        period, rate) for k, motion in enumerate(motions)]
+    truths_t = [torch.as_tensor(t, dtype=torch.float32, device=device)
+                for t in truths]
+    meshes = [scene.object_mesh(text, center=False, device=device)
+              for text in obj_texts]
     bg = float(params["background_m"])
     if native:
+        mesh, truth_t = meshes[0], truths_t[0]
         radius = float(np.linalg.norm(
             mesh.vertices.detach().cpu().numpy(), axis=1).max())
         depth = scene.render_clipped(mesh, truth_t, camera, radius, bg)
         depth = depth.reshape(period, -1)
     else:
-        parts = [(mesh, truth_t, None)]
+        parts = [(m, t, None) for m, t in zip(meshes, truths_t)]
         occ = params.get("occluder")
         if occ:
             poses, on = scene.occluder_poses(occ, period, rate)
@@ -108,7 +129,8 @@ def make(params: dict, config: dict, obj_text: str, seed: int,
         frames = depth.cpu().numpy().astype(np.float32)
     return Traffic(loop=params["loop"], rate_hz=rate, period=period,
                    warmup_frames=int(params["warmup_frames"]),
-                   truth=truth.astype(np.float32),
+                   truth=(truths[0] if len(truths) == 1
+                          else np.stack(truths, axis=1)).astype(np.float32),
                    frames=np.ascontiguousarray(frames.reshape(shape)),
                    native=native,
                    downsampling=int(cam_cfg["downsampling_factor"]))

@@ -19,15 +19,15 @@ from . import gf, pf
 
 
 class ControlParticleTracker:
-    def __init__(self, settings: dict, obj_text: str, device,
+    def __init__(self, settings: dict, obj_texts, device,
                  dtype: str = "tf32"):
-        self.ref = pf.ParticleReference(settings, obj_text, device)
+        self.ref = pf.ParticleReference(settings, obj_texts, device)
         self.dtype = dtype
         self.config = types.SimpleNamespace(
             evaluation_count=self.ref.P, seed=self.ref.seed)
         self._dt = 1.0 / self.ref.frame_rate
         self.trans_params = self.ref.trans
-        self.meshes = [self.ref.mesh]
+        self.meshes = self.ref.meshes
         self.trial_active = None
         self._bel = None
         self.belief = None
@@ -80,18 +80,22 @@ class ControlGaussianTracker:
         return pose, info
 
 
-def factory(obj_text_of, dtype: str = "tf32"):
+def factory(obj_texts_of, dtype: str = "tf32"):
     """A ``tracker_factory`` for ``runner.run_cell`` that builds the
-    control of the cell's configuration."""
+    control of the cell's configuration; ``obj_texts_of(settings)`` gives
+    the tracked objects' OBJ texts."""
     def make(kind, settings, device):
-        obj = obj_text_of(settings)
-        cls = (ControlParticleTracker if kind == "particle"
-               else ControlGaussianTracker)
-        return cls(settings, obj, device, dtype)
+        objs = obj_texts_of(settings)
+        if kind == "particle":
+            return ControlParticleTracker(settings, objs, device, dtype)
+        return ControlGaussianTracker(settings, objs[0], device, dtype)
     return make
 
 
-def obj_text_from_settings(settings: dict) -> str:
-    with open(settings["object"]["meshes"][0]) as fh:
-        return fh.read()
-
+def obj_texts_from_settings(settings: dict) -> list:
+    """The OBJ texts of the files the tracker's settings name."""
+    out = []
+    for path in settings["object"]["meshes"]:
+        with open(path) as fh:
+            out.append(fh.read())
+    return out

@@ -1,11 +1,13 @@
-"""The benchmark's scene: the tracked object's mesh, the camera, the
+"""The benchmark's scene: the tracked objects' meshes, the camera, the
 trajectories and the exact renderer that makes every frame.
 
 Plain PyTorch and NumPy on top of the frozen copies in ``frozen/``; it
-imports nothing of the port. The mesh generator is a frozen copy of the
-arithmetic of ``dbot_ros_tpu_torch/utils/mesh.py`` ``icosphere_mesh``
-(subdivision, midpoint cache, normalisation) returning raw arrays, which
-are then stretched into a tri-axial ellipsoid: a sphere hides rotation.
+imports nothing of the port. The ellipsoid's generator is a frozen copy
+of the arithmetic of ``dbot_ros_tpu_torch/utils/mesh.py``
+``icosphere_mesh`` (subdivision, midpoint cache, normalisation)
+returning raw arrays, which are then stretched into a tri-axial
+ellipsoid: a sphere hides rotation. The box is the occluder's
+(``frozen/mesh.py`` ``_box_arrays``).
 """
 
 from __future__ import annotations
@@ -59,13 +61,21 @@ def icosphere_arrays(subdivisions: int):
 
 
 def object_obj_text(mesh_spec: dict) -> str:
-    """The tracked object as Wavefront OBJ text: an icosphere of
-    ``subdivisions`` stretched to ``semi_axes_m``. Vertices are rounded
-    to float32 and written with 17 digits, so every parser reads the same
-    float32 values."""
-    v, f = icosphere_arrays(int(mesh_spec["subdivisions"]))
-    v = (v * np.asarray(mesh_spec["semi_axes_m"], np.float64)).astype(
-        np.float32).astype(np.float64)
+    """A tracked object as Wavefront OBJ text. ``kind`` ``ellipsoid`` (the
+    default): an icosphere of ``subdivisions`` stretched to
+    ``semi_axes_m``; ``box``: an axis-aligned box of side lengths
+    ``size_m`` centred at the origin. Vertices are rounded to float32 and
+    written with 17 digits, so every parser reads the same float32
+    values."""
+    kind = mesh_spec.get("kind", "ellipsoid")
+    if kind == "ellipsoid":
+        v, f = icosphere_arrays(int(mesh_spec["subdivisions"]))
+        v = v * np.asarray(mesh_spec["semi_axes_m"], np.float64)
+    elif kind == "box":
+        v, f = _box_arrays(*[float(s) for s in mesh_spec["size_m"]])
+    else:
+        raise ValueError(f"unknown mesh kind {kind!r}")
+    v = v.astype(np.float32).astype(np.float64)
     lines = [f"v {x:.17g} {y:.17g} {z:.17g}" for x, y, z in v]
     lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in f]
     return "\n".join(lines) + "\n"
@@ -117,7 +127,8 @@ def trajectory(params: dict, rng: np.random.Generator, period: int,
     """Model-frame poses (period, 7) float64 of one period.
 
     Translation: ``depth_m`` ahead of the camera plus a sway of
-    ``amplitude_m`` per axis at integer ``harmonics`` of the period.
+    ``amplitude_m`` per axis at integer ``harmonics`` of the period, plus
+    ``offset_m`` (x, y, z; zero if not given, drawing nothing).
     Rotation: ``sway`` (a rotation vector of ``amplitude_rad`` per axis at
     integer harmonics, about a base orientation) or ``spin`` (``turns``
     whole turns a period about the fixed skew ``axis``, after the base
@@ -130,6 +141,8 @@ def trajectory(params: dict, rng: np.random.Generator, period: int,
     pos = amp[None] * np.sin(2.0 * math.pi * harm[None] * t[:, None] / period
                              + ph[None])
     pos[:, 2] += float(params["depth_m"])
+    if "offset_m" in params:
+        pos += np.asarray(params["offset_m"], np.float64)[None]
 
     base = rng.normal(size=3)
     base *= float(params["rotation"].get("base_rad", 0.5)) / np.linalg.norm(

@@ -1,10 +1,12 @@
 """The work the fused likelihood needs on one frame, counted from the
-problem's sizes (not from the port's buffers): for the pixels that score
-(``n_active``) and the P particles (not the padded width), each input
-byte read once and each output byte written once. The frame's counts
-(``n_active``, ``n_uniq``) come from the reference's own candidate pass
-at the frame's true pose (``ParticleReference.candidate_counts``), not
-from the program:
+problem's sizes (not from the port's buffers): a frame of K tracked
+objects runs the kernel K times, once a coordinate block, each over the
+table of every object's candidates; each call, for the pixels that score
+(``n_active``) and the P particles (not the padded width), reads each
+input byte once and writes each output byte once. The frame's counts
+(``n_active``, ``n_uniq``, the latter over every mesh's triangles) come
+from the reference's own candidate pass at the frame's true poses
+(``ParticleReference.candidate_counts``), not from the program:
 
 * the occlusion rows of those pixels, read and written in bfloat16;
 * the transformed constants (10 float32) of every triangle the frame's
@@ -29,8 +31,9 @@ def work(run, frame):
     """(operations, bytes) of one frame, or None without its counts."""
     if frame.counts is None:
         return None
-    return work_at(frame.counts[0], frame.counts[1], run.num_particles,
-                   num_candidates(run))
+    flops, nbytes = work_at(frame.counts[0], frame.counts[1],
+                            run.num_particles, num_candidates(run))
+    return run.objects * flops, run.objects * nbytes
 
 
 def num_candidates(run):

@@ -35,7 +35,7 @@ def test_the_control_is_not_correct(card, cell, seed, monkeypatch):
         overrides["settings"] = {"evaluation_count": 4096}
     out = runner.run_cell(
         cell, seed, 1.0, False, device=card, overrides=overrides,
-        tracker_factory=control.factory(control.obj_text_from_settings),
+        tracker_factory=control.factory(control.obj_texts_from_settings),
         log=lambda m: None)
     assert out["info"]["checked_frames"] >= 2
     assert out["correct"] is False, out["checks"]

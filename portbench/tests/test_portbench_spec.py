@@ -85,6 +85,8 @@ def test_every_file_loads_by_name():
     for w in b["workloads"]:
         params = spec.traffic(w["traffic"])
         assert params["loop"] in ("closed", "open")
+        # configuration and mix agree on the tracked objects
+        assert spec.objects(spec.config(w["config"]), params) >= 1
     for m in b["per_layer"]:
         assert callable(spec.reader(m["name"]).read)
     for kernel in ("fused_loglik", "lineage_gather"):

@@ -1,6 +1,7 @@
 """The generators, the readers and the work counts give known answers at
 small sizes on the CPU."""
 
+import json
 import math
 
 import numpy as np
@@ -30,9 +31,9 @@ def test_traffic_is_a_function_of_the_seed(name):
     if params.get("occluder"):
         params["occluder"]["frames"] = [5, 20]
         params["dropout"]["frames"] = [22, 25]
-    a = traffic.make(params, conf, obj, 2**33 + 5, "cpu")
-    b = traffic.make(params, conf, obj, 2**33 + 5, "cpu")
-    c = traffic.make(params, conf, obj, 2**33 + 6, "cpu")
+    a = traffic.make(params, conf, [obj], 2**33 + 5, "cpu")
+    b = traffic.make(params, conf, [obj], 2**33 + 5, "cpu")
+    c = traffic.make(params, conf, [obj], 2**33 + 6, "cpu")
     assert np.array_equal(a.frames, b.frames, equal_nan=True)
     assert np.array_equal(a.truth, b.truth)
     assert not np.array_equal(a.truth, c.truth)
@@ -133,12 +134,23 @@ def test_readers_find_nothing_without_a_trace_or_counts():
     assert spec.reader("fused_loglik_roofline").read(run) is None
 
 
-def test_work_counts_by_hand():
+@pytest.mark.parametrize("objects", [1, 2])
+def test_work_counts_by_hand(objects):
+    """A frame of K objects runs the fused kernel and the lineage gather
+    once a coordinate block: K times one call's work."""
     fl, nb = spec.work_count("fused_loglik").work_at(2, 3, 4, 2)
     assert nb == 2 * 2 * 2 * 4 + 10 * 4 * 3 * 4 + 2 * (4 + 12 + 8 + 4) + 16
     assert fl == 2 * 4 * (31 * 2 + 50)
     fl, nb = spec.work_count("lineage_gather").work_at(3, 5)
     assert (fl, nb) == (0.0, 2 * 2 * 3 * 5 + 4 * 5)
+    run = _run(None, counts=(2, 3))
+    run.objects, run.num_particles, run.num_pixels = objects, 4, 3
+    frame = run.frames[0]
+    one = spec.work_count("fused_loglik").work_at(2, 3, 4, 2)
+    assert spec.work_count("fused_loglik").work(run, frame) == tuple(
+        objects * x for x in one)
+    assert spec.work_count("lineage_gather").work(run, frame) == (
+        0.0, objects * (2 * 2 * 3 * 4 + 4 * 4))
 
 
 def test_percentile_counts_a_lost_frame_as_missing():
@@ -182,30 +194,244 @@ def test_split_cuts_the_trace_where_host_ops_are_recorded():
     assert host is None and dev.count_device() == 1
 
 
-def test_the_references_counts_are_the_ladders_at_the_pose(tmp_path):
+@pytest.mark.parametrize("objects", [1, 2])
+def test_the_references_counts_are_the_ladders_at_the_pose(tmp_path,
+                                                           objects):
     """The fused likelihood's work is counted from the reference's
-    candidate pass at the frame's true pose: where every particle sits at
-    that pose, the program's own ladder counts are the same."""
+    candidate pass at the frame's true poses: where every particle sits
+    at those poses, the program's own ladder counts are the same (at
+    K = 2 over both meshes' triangles, the box crossing the ellipsoid)."""
     from portbench.core import runner
+    from portbench.tests.test_portbench_objects import two_object_files
 
-    conf = spec.config("pf_rbcpf_10k")
+    if objects == 1:
+        conf, params = spec.config("pf_rbcpf_10k"), spec.traffic("stream")
+    else:
+        conf, params = two_object_files()
     settings = dict(conf["settings"], evaluation_count=64, seed=1)
-    obj = scene.object_obj_text(conf["assumed"]["mesh"])
-    (tmp_path / "object.obj").write_text(obj)
-    settings["object"] = dict(settings["object"],
-                              meshes=[str(tmp_path / "object.obj")])
+    objs = [scene.object_obj_text(m) for m in spec.meshes(conf)]
+    paths = []
+    for k, obj in enumerate(objs):
+        (tmp_path / f"object{k}.obj").write_text(obj)
+        paths.append(str(tmp_path / f"object{k}.obj"))
+    settings["object"] = dict(settings["object"], meshes=paths)
     sensor = runner.build_tracker("particle", settings, "cpu").sensor
-    ref = pf.ParticleReference(settings, obj, "cpu")
-    params = spec.traffic("stream")
-    truth = scene.trajectory(params["motion"], np.random.default_rng(5),
-                             params["period_frames"], params["rate_hz"])
-    for pose in truth[::150]:
+    ref = pf.ParticleReference(settings, objs, "cpu")
+    truth = np.stack([scene.trajectory(
+        m, np.random.default_rng(5 + k), params["period_frames"],
+        params["rate_hz"]) for k, m in enumerate(spec.motions(params))],
+        axis=1)                                       # (period, K, 7)
+    both = 0
+    for pose in truth[::50]:
         pc = scene.to_center_frame(
-            torch.as_tensor(pose, dtype=torch.float32)[None],
-            ref.mesh.center)
-        states = torch.zeros((64, 1, 13))
+            torch.as_tensor(pose, dtype=torch.float32), ref.centers)
+        states = torch.zeros((64, objects, 13))
         states[..., :7] = pc[None]
         plan = sensor.plan_device(states, torch.zeros(ref.N), 1 / 30)
         got = tuple(int(v) for v in plan.book["counts"].tolist())
         assert got == ref.candidate_counts(pose)
         assert got[0] > 0
+        cand = ref.candidates(states)
+        both += bool((cand < 1408).any() and (cand != ref.deg).any()
+                     and ((cand >= 1408) & (cand != ref.deg)).any())
+    if objects == 2:
+        assert both > 0          # frames whose table names both meshes
+
+
+PINNED_JSON = '''
+{
+ "stream": {
+  "frames_sum": 229153.42915016413,
+  "nan": 0,
+  "pixels": [
+   0.7511484026908875,
+   0.7969187498092651,
+   0.7449856400489807,
+   0.7536699175834656
+  ],
+  "pixels2": [
+   1.6016173362731934,
+   1.5985361337661743
+  ],
+  "truth": [
+   [
+    -0.007220861501991749,
+    0.010639963671565056,
+    0.7802900671958923,
+    0.9176523685455322,
+    -0.12046406418085098,
+    0.23415769636631012,
+    -0.29761165380477905
+   ],
+   [
+    0.0009894531685858965,
+    0.012818126939237118,
+    0.8199848532676697,
+    0.7571326494216919,
+    0.43644043803215027,
+    -0.2619066536426544,
+    -0.40948113799095154
+   ],
+   [
+    0.009028682485222816,
+    -0.01856200210750103,
+    0.7806136012077332,
+    0.9209045767784119,
+    0.11947726458311081,
+    0.29482364654541016,
+    -0.22525301575660706
+   ],
+   [
+    0.01550676953047514,
+    -0.0013461792841553688,
+    0.8179406523704529,
+    0.9501593708992004,
+    -0.09762746840715408,
+    -0.26242804527282715,
+    0.13710428774356842
+   ],
+   [
+    0.019303595647215843,
+    0.019393986091017723,
+    0.7842892408370972,
+    0.9194815754890442,
+    0.22508910298347473,
+    0.27081143856048584,
+    -0.17478486895561218
+   ]
+  ],
+  "pose": [
+   -0.007224326953291893,
+   0.010632538236677647,
+   0.7802729606628418,
+   0.9176545739173889,
+   -0.12045557051897049,
+   0.23414696753025055,
+   -0.29761675000190735
+  ],
+  "mean_loglik": -8710.255859375,
+  "kl": 0.006272792816162109,
+  "resampled": false,
+  "counts": [
+   56,
+   48
+  ]
+ },
+ "fast_occluded": {
+  "frames_sum": 212571.91406944394,
+  "nan": 7166,
+  "pixels": [
+   0.7545873522758484,
+   0.7868239283561707,
+   0.7641004323959351,
+   0.74589604139328
+  ],
+  "pixels2": [
+   1.6016173362731934,
+   1.5985361337661743
+  ],
+  "truth": [
+   [
+    -0.007220861501991749,
+    0.010639963671565056,
+    0.7802900671958923,
+    0.9689124226570129,
+    0.14393411576747894,
+    0.0065393163822591305,
+    -0.20111918449401855
+   ],
+   [
+    0.0009894531685858965,
+    0.012818126939237118,
+    0.8199848532676697,
+    0.5943149328231812,
+    0.6185903549194336,
+    0.5139221549034119,
+    -0.00444771908223629
+   ],
+   [
+    0.009028682485222816,
+    -0.01856200210750103,
+    0.7806136012077332,
+    0.17356379330158234,
+    -0.6839013695716858,
+    -0.6812227368354797,
+    -0.19516697525978088
+   ],
+   [
+    0.01550676953047514,
+    -0.0013461792841553688,
+    0.8179406523704529,
+    0.8265886306762695,
+    -0.2966482937335968,
+    -0.39773184061050415,
+    -0.26563212275505066
+   ],
+   [
+    0.019303595647215843,
+    0.019393986091017723,
+    0.7842892408370972,
+    0.9326277375221252,
+    0.28690844774246216,
+    0.1489536464214325,
+    -0.16031818091869354
+   ]
+  ],
+  "pose": [
+   -0.007225873414427042,
+   0.010644853115081787,
+   0.7806316614151001,
+   0.9689111113548279,
+   0.14394134283065796,
+   0.0065264287404716015,
+   -0.20112104713916779
+  ],
+  "mean_loglik": -8677.3642578125,
+  "kl": -0.0014657974243164062,
+  "resampled": false,
+  "counts": [
+   50,
+   42
+  ]
+ }
+}
+'''
+
+
+# the one-object path at a short period, seed 0, 512 particles, on the
+# CPU, as it read before scenes of several objects were supported; floats
+# to 1e-6 relative (pixels, poses: 1e-6 absolute), the KL to 1e-4
+PINNED = json.loads(PINNED_JSON)
+
+
+@pytest.mark.parametrize("name", ["stream", "fast_occluded"])
+def test_the_one_object_path_reads_as_before(name):
+    want = PINNED[name]
+    conf = spec.config("pf_rbcpf_10k")
+    settings = dict(conf["settings"], evaluation_count=512)
+    obj = scene.object_obj_text(conf["assumed"]["mesh"])
+    params = spec.traffic(name)
+    params.update(period_frames=30, warmup_frames=6)
+    if params.get("occluder"):
+        params["occluder"]["frames"] = [0, 20]
+        params["dropout"]["frames"] = [22, 25]
+    t = traffic.make(params, settings, [obj], 0, "cpu")
+    assert t.truth.shape == (30, 7)
+    f = t.frames.astype(np.float64)
+    assert np.nansum(f) == pytest.approx(want["frames_sum"], rel=1e-6)
+    assert int(np.isnan(f).sum()) == want["nan"]
+    got = [t.frames[i, 30, 40] for i in (0, 9, 17, 29)] + [
+        t.frames[i, 25, 35] for i in (3, 12)]
+    assert got == pytest.approx(want["pixels"] + want["pixels2"], abs=1e-6)
+    assert t.truth[::7] == pytest.approx(np.asarray(want["truth"]),
+                                         abs=1e-6)
+    ref = pf.ParticleReference(settings, [obj], "cpu")
+    st = ref.step(ref.initial(t.truth[0]), t.frames[0], 1 / 30,
+                  ref.draw(ref.generator()))
+    assert st.pose.reshape(-1).tolist() == pytest.approx(want["pose"],
+                                                         abs=1e-6)
+    assert float(st.mean_loglik) == pytest.approx(want["mean_loglik"],
+                                                  rel=1e-6)
+    assert st.kl == pytest.approx(want["kl"], abs=1e-4)
+    assert st.resampled is want["resampled"]
+    assert list(ref.candidate_counts(t.truth[5])) == want["counts"]
