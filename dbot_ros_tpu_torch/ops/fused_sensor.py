@@ -620,7 +620,9 @@ class FusedSensor:
     def choose_level(self, plan: "SensorPlan") -> "SensorPlan":
         """The ladder's level for ``plan``: the tightest whose caps hold
         (n_active, n_uniq), read back in one 8-byte copy, the call's one
-        host read (none without a ladder). Sets ``last_level``."""
+        host read (none without a ladder). Sets ``last_level``, and marks
+        it for a running profiler with an empty span
+        ``dbot.sensor.level:<level>``."""
         caps = self.caps(plan.cand.shape[0])
         level = len(caps)
         if caps:
@@ -630,6 +632,8 @@ class FusedSensor:
             level = next((i for i, (pcap, tcap) in enumerate(caps)
                           if (pcap is None or n_active <= pcap)
                           and (tcap is None or n_uniq < tcap)), len(caps))
+            with span("dbot.sensor.level", level):
+                pass
         self.last_level = level
         return plan._replace(level=level)
 

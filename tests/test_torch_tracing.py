@@ -140,6 +140,40 @@ def test_particle_loop_spans_once_a_frame_and_nest():
         assert not named(evs, name), name
 
 
+@pytest.mark.parametrize("ladder", [True, False])
+def test_the_sensor_marks_its_ladder_level(ladder):
+    """The fused sensor marks the level it chose, ``FusedSensor.last_level``,
+    with one empty span ``dbot.sensor.level:<level>`` a frame, after the
+    ladder's read and inside the tracker's call; a sensor without a
+    ladder (one level that compacts nothing) reads nothing and marks
+    nothing."""
+    sphere, cam, frames = scene()
+    tracker = particle_tracker(sphere, cam)
+    if not ladder:
+        tracker = ParticleTracker(cfg.ParticleTrackerConfig(
+            evaluation_count=256, backend="pallas",
+            backend_options={"levels": [(1.0, 1.0)]}), meshes=[sphere],
+            camera=cam, device="cpu")
+        tracker.initialize(P0)
+        assert not tracker.sensor.caps(cam.num_pixels)
+    levels = []
+    evs = recorded(tracker, frames, lambda *a: levels.append(
+        tracker.sensor.last_level))
+    marks = [e for e in evs if e[0].startswith("dbot.sensor.level")]
+    if not ladder:
+        assert levels == [0] * FRAMES
+        assert not marks and not named(evs, "dbot.read.ladder")
+        return
+    assert [m[0] for m in marks] == [f"dbot.sensor.level:{lv}"
+                                     for lv in levels]
+    tracks = named(evs, "dbot.track")
+    for mark, read in zip(marks, named(evs, "dbot.read.ladder")):
+        assert read[2] <= mark[1]
+        inside(mark, tracks)
+        assert not [e for e in evs if e[0].startswith("aten::")
+                    and mark[1] <= e[1] < mark[2]]
+
+
 def test_gaussian_loop_spans_once_a_frame_and_nest():
     """(c) The Gaussian tracker: no ladder read, one ``step`` graph a
     frame."""
